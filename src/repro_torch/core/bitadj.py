@@ -1,0 +1,236 @@
+"""BitELL: bit-packed structural adjacency.
+
+Port of ``repro.core.bitadj`` (single-device BitELL; ``ShardedBitELL``
+waits for the mesh slice). Rows are grouped into 32-row panels; each panel
+keeps an ELL-style list of occupied 32-column tile slots, and one 32x32
+tile of edges lives in 32 words:
+
+    tiles  (P, S, 32) int32    bit b of tiles[p, s, r] <=> edge
+                               (p*32 + r,  cols[p, s]*32 + b)
+    cols   (P, S)     int32    column-tile id per slot (sentinel C = empty)
+
+with P = ceil(n/32) panels and S the widest panel's slot count. The layout,
+the slot order and the sentinel are the JAX package's; words hold the
+uint32 bit pattern in int32 storage (see ``core.bitmap``).
+
+The or_and product against a packed frontier is ``panels_mxm_words`` — the
+plain version of the hand-written CUDA kernel ``kernels.bitadj_mxv``.
+Weighted semirings take the cached materialize-to-ELL fallback
+(``to_ell``), as in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitmap, xfer
+from repro_torch.core.ell import ELL
+
+TILE = bitmap.WORD_BITS     # 32-row panels x 32-column tiles, one word/row
+
+# -- fmt="auto" crossover policy (copied from the JAX package, which
+# measured it with benchmarks/calibrate.py::calibrate_bitadj_fill) -----------
+AUTO_BITADJ_MIN_FILL = 0.02   # occupied-tile fill below this: ELL wins
+AUTO_BITADJ_MAX_SLOTS = 64    # widest-panel slots above this: padding loses
+
+
+def _tile_stats(rows, cols, shape):
+    """(occupied-tile fill, widest-panel slot count) of a COO structure."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    if rows.size == 0:
+        return 0.0, 0
+    n_ct = -(-int(shape[1]) // TILE)
+    key = np.unique((rows // TILE) * n_ct + (cols // TILE))
+    slots = int(np.bincount((key // n_ct).astype(np.int64)).max())
+    fill = rows.size / (len(key) * TILE * TILE)
+    return fill, slots
+
+
+def auto_bitadj_ok(rows, cols, vals, shape) -> bool:
+    """Construction-time side of the BitELL auto policy: a boolean relation
+    whose occupied 32x32 tiles are dense enough (AUTO_BITADJ_MIN_FILL)
+    without slot-padding blowup on skewed panels (AUTO_BITADJ_MAX_SLOTS)."""
+    if vals is not None and not np.all(np.asarray(vals) == 1.0):
+        return False
+    if np.asarray(rows).size == 0:
+        return False
+    fill, slots = _tile_stats(rows, cols, shape)
+    return fill >= AUTO_BITADJ_MIN_FILL and slots <= AUTO_BITADJ_MAX_SLOTS
+
+
+@dataclasses.dataclass
+class BitELL:
+    shape: Tuple[int, int]
+    tiles: torch.Tensor     # (P, S, 32) int32 bit-tiles (see module doc)
+    cols: torch.Tensor      # (P, S) int32 column-tile per slot; sentinel C
+    nnz: int
+    # cached ELL materialization (the weighted-semiring fallback target)
+    _ell: Optional[ELL] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # (tiles, cols) with each panel's occupied slots first: the kernel's
+    # operands, cached per matrix
+    _slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def n_panels(self) -> int:
+        return self.tiles.shape[0]
+
+    @property
+    def n_slots(self) -> int:
+        return self.tiles.shape[1]
+
+    @property
+    def n_ctiles(self) -> int:
+        return -(-self.shape[1] // TILE)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tiles.device
+
+    @staticmethod
+    def from_coo(rows, cols, vals, shape, pad_slots_to: int = 1,
+                 device="cuda") -> "BitELL":
+        """Structural build: every (row, col) pair is an edge. ``vals`` must
+        be None or all-ones — BitELL stores no weights."""
+        if vals is not None and not np.all(np.asarray(vals) == 1.0):
+            raise TypeError(
+                "BitELL is structural (boolean) storage and cannot carry "
+                "edge weights; build fmt='ell' (or let fmt='auto' pick) for "
+                "weighted relations")
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        n, k = int(shape[0]), int(shape[1])
+        P = max(-(-n // TILE), 1)
+        C = max(-(-k // TILE), 1)
+        key = rows // TILE * C + cols // TILE          # global tile id
+        order = np.argsort(key, kind="stable")
+        rows, cols, key = rows[order], cols[order], key[order]
+        ukey, inv = np.unique(key, return_inverse=True)
+        up = (ukey // C).astype(np.int64)              # panel of each tile
+        pdeg = np.bincount(up, minlength=P)
+        S = int(pdeg.max()) if pdeg.size and pdeg.max() > 0 else 1
+        S = S + (-S) % max(pad_slots_to, 1)
+        starts = np.zeros(P + 1, dtype=np.int64)
+        starts[1:] = np.cumsum(pdeg)
+        slot = np.arange(len(ukey)) - starts[up]
+        colsA = np.full((P, S), C, dtype=np.int32)     # sentinel = zero X tile
+        colsA[up, slot] = (ukey % C).astype(np.int32)
+        tiles = np.zeros(P * S * TILE, dtype=np.uint32)
+        word = (up[inv] * S + slot[inv]) * TILE + rows % TILE
+        np.bitwise_or.at(tiles, word,
+                         np.uint32(1) << (cols % TILE).astype(np.uint32))
+        # duplicate edges collapse into one bit, so the set-bit count (the
+        # JAX package's popcount) is the number of distinct (row, col) pairs
+        nnz = int(np.unique(rows * max(k, 1) + cols).size)
+        dev = torch.device(device)
+        return BitELL(shape=(n, k),
+                      tiles=torch.from_numpy(
+                          tiles.view(np.int32).reshape(P, S, TILE)).to(dev),
+                      cols=torch.from_numpy(colsA).to(dev), nnz=nnz)
+
+    def occupied_first(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(tiles, cols) with each panel's occupied slots before its
+        sentinel slots, so a panel ends at its first sentinel. ``from_coo``
+        already stores them so; other storage is reordered within its
+        panels (OR does not depend on slot order). Built once, then
+        cached."""
+        if self._slots is None:
+            tiles, cols = self.tiles, self.cols
+            occ = cols < self.n_ctiles
+            if bool((occ[:, 1:] & ~occ[:, :-1]).any()):
+                order = torch.argsort((~occ).to(torch.int8), dim=1,
+                                      stable=True)
+                cols = cols.gather(1, order)
+                tiles = tiles.gather(
+                    1, order[:, :, None].expand(-1, -1, TILE))
+            self._slots = (tiles.contiguous(), cols.contiguous())
+        return self._slots
+
+    def to_coo(self):
+        """Host-side COO of the stored structure (vals are unit weights);
+        the bit scan runs on the storage's device."""
+        t = self.tiles
+        p, s, r = torch.nonzero(t, as_tuple=True)
+        w = t[p, s, r]
+        c = self.cols[p, s].to(torch.int64)
+        rows, cols = [], []
+        for b in range(TILE):
+            hit = ((w >> b) & 1) != 0
+            rows.append(p[hit] * TILE + r[hit])
+            cols.append(c[hit] * TILE + b)
+        rows = torch.cat(rows).cpu().numpy().astype(np.int64)
+        cols = torch.cat(cols).cpu().numpy().astype(np.int64)
+        return rows, cols, np.ones(len(rows), np.float32)
+
+    def to_ell(self) -> ELL:
+        """Cached ELL materialization — the fallback target for weighted
+        semirings. Counted once: the bit-tiles leave the device to rebuild
+        the padded neighbor lists."""
+        if self._ell is None:
+            xfer.record("bitadj_materialize")
+            r, c, v = self.to_coo()
+            self._ell = ELL.from_coo(r, c, v, self.shape, device=self.device)
+        return self._ell
+
+    def transpose(self) -> "BitELL":
+        r, c, _ = self.to_coo()
+        return BitELL.from_coo(c, r, None, (self.shape[1], self.shape[0]),
+                               device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# or_and word product — the plain version of kernels.bitadj_mxv
+# ---------------------------------------------------------------------------
+def _or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise-OR reduction over one dimension (torch has none): halve the
+    dimension with ``|`` until one slice is left."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        rest = x[2 * h:]
+        x = torch.cat([x[:h] | x[h:2 * h], rest]) if rest.numel() else \
+            x[:h] | x[h:2 * h]
+    return x[0]
+
+
+def _pad_query_tiles(Xw: torch.Tensor, k: int) -> torch.Tensor:
+    """(>=k, W) packed frontier words -> (C+1, 32, W) query tiles: rows
+    squared up to the column-tile grid (truncated first) plus one all-zero
+    sentinel tile that empty slots (cols == C) gather harmlessly."""
+    C = max(-(-k // TILE), 1)
+    Xw = Xw[:min(Xw.shape[0], C * TILE)]
+    out = torch.zeros(((C + 1) * TILE, Xw.shape[1]), dtype=Xw.dtype,
+                      device=Xw.device)
+    out[:Xw.shape[0]] = Xw
+    return out.reshape(C + 1, TILE, Xw.shape[1])
+
+
+def panels_mxm_words(tiles: torch.Tensor, cols: torch.Tensor,
+                     Xw: torch.Tensor, k: int,
+                     slot_chunk: int = 8) -> torch.Tensor:
+    """Yw[p*32+r] = OR over slots s and bits b with tiles[p,s,r] bit b set
+    of Xw[cols[p,s]*32 + b]. Slot chunking bounds the (P, sc, 32, 32, W)
+    bit-spread intermediate."""
+    Pn, Sn, _ = tiles.shape
+    W = Xw.shape[1]
+    Xt = _pad_query_tiles(Xw, k)                       # (C+1, 32, W)
+    shifts = torch.arange(TILE, dtype=torch.int32, device=tiles.device)
+    acc = torch.zeros((Pn, TILE, W), dtype=torch.int32, device=tiles.device)
+    for s0 in range(0, Sn, slot_chunk):
+        tc = tiles[:, s0:s0 + slot_chunk]              # (P, sc, 32)
+        cc = cols[:, s0:s0 + slot_chunk].long()        # (P, sc)
+        G = Xt[cc]                                     # (P, sc, 32, W)
+        bits = (tc[:, :, :, None] >> shifts) & 1       # (P, sc, 32r, 32b)
+        term = G[:, :, None, :, :] & -bits[..., None]  # (P, sc, 32r, 32b, W)
+        acc |= _or_reduce(_or_reduce(term, 3), 1)
+    return acc.reshape(Pn * TILE, W)
+
+
+def mxm_words(b: BitELL, Xw: torch.Tensor) -> torch.Tensor:
+    """(k-rows, W) packed frontier words -> (n, W) result words."""
+    return panels_mxm_words(b.tiles, b.cols, Xw, b.shape[1])[:b.shape[0]]
