@@ -1,3 +1,3 @@
-"""Storage kinds (ELL, BitELL), semirings, bitmap words and the ``grb`` op
-surface — the port of ``repro.core`` for the kinds the k-hop MATCH path
-reaches."""
+"""Storage kinds (BSR, ELL, BitELL), semirings, bitmap words and the
+``grb`` op surface — the port of ``repro.core`` for the kinds the k-hop
+MATCH path reaches."""

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import bitmap, grb, ops
 from repro_torch.core.bitadj import BitELL
+from repro_torch.core.bsr import BSR
 from repro_torch.core.ell import ELL
 
 
@@ -135,9 +136,7 @@ def _dedup(src, dst, w, n):
 
 def _make(src, dst, w, n, fmt, block, device):
     if fmt == "bsr":
-        raise NotImplementedError(
-            "fmt='bsr': BSR storage is not ported yet (ROADMAP 'Modules to "
-            "port'); build with fmt='ell' or fmt='bitadj'")
+        return BSR.from_coo(src, dst, w, (n, n), block=block, device=device)
     if fmt == "ell":
         return ELL.from_coo(src, dst, w, (n, n), device=device)
     if fmt == "bitadj":

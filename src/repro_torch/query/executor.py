@@ -6,8 +6,13 @@ of source binding j. Each Expand is min..max masked semiring hops through
 ``core.grb``; node predicates become diagonal masks applied between hops.
 Structural (or_and) expands whose relation passes ``grb.words_route_ok``
 run the word-resident hop loop: pack once, ``grb.mxm_words`` per hop with
-word-wise visited blends, unpack once. On a CUDA graph each hop is one
-hand-written kernel launch.
+word-wise visited blends, unpack once. BSR relations take the float hop
+loop, one masked ``grb.mxm`` (the ``bsr_mxm`` kernel, with the <!visited>
+mask in its epilogue) per hop, or, for a structural ``*1..k`` from hop 1
+in one direction on at most ``SPGEMM_EXPAND_MAX_N`` vertices, one masked
+``grb.mxm`` against the hop matrix OR_{h=1..k} M^h, built once per
+context with SpGEMM (the ``bsr_spgemm`` kernel). On a CUDA graph each hop
+is one hand-written kernel launch.
 
 ``ExecutionContext`` is the execution surface the server composes
 (``node_mask``, ``seed_frontier``, ``expand``, ``traverse``, ``project``);
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmap as _bitmap, grb, semiring as S
+from repro_torch.core.bsr import bsr_union, spgemm
 from repro_torch.core.grb import Descriptor
 from repro_torch.graph.graph import Graph
 from repro_torch.query import qast as A
@@ -136,6 +142,8 @@ class ExecutionContext:
     def __init__(self, graph: Graph, spgemm_expand: bool = True):
         self.graph = graph
         self.spgemm_expand = spgemm_expand
+        # (relation, transpose, max_hops) -> hop-matrix handle
+        self._hops = {}
 
     # -- primitives ----------------------------------------------------------
     def matrix(self, rel: Optional[str]) -> grb.GBMatrix:
@@ -171,10 +179,28 @@ class ExecutionContext:
             torch.from_numpy(keep.astype(np.float32)).to(dev)
         return B
 
+    def _hop_matrix(self, rel, transpose: bool,
+                    max_hops: int) -> grb.GBMatrix:
+        """Union of walk matrices OR_{h=1..max} Mt^h over or_and, built once
+        per (relation, direction, max_hops) with BSR x BSR SpGEMM and the
+        structural union, and cached on the context."""
+        key = (rel, transpose, max_hops)
+        P = self._hops.get(key)
+        if P is None:
+            M = self.matrix(rel)
+            Mt = (M.T if transpose else M).store
+            acc = walk = Mt
+            for _ in range(max_hops - 1):
+                walk = spgemm(walk, Mt, S.OR_AND)
+                acc = bsr_union(acc, walk)
+            P = self._hops[key] = grb.GBMatrix(acc,
+                                               name=f"{rel}^1..{max_hops}")
+        return P
+
     def _expand_spgemm_ok(self, e, sr: S.Semiring, transposes) -> bool:
-        """The JAX package's gate for its BSR hop-matrix rewrite. It needs
-        BSR storage, which the port does not hold, so it never passes; if
-        it ever did, the caller raises rather than answer another way."""
+        """The hop-matrix rewrite is exact only for structural reachability
+        starting at hop 1 in a single direction (walk-union == first-reach
+        union once the seed columns are masked back out)."""
         return (self.spgemm_expand and sr.name == "or_and"
                 and e.min_hops == 1 and e.max_hops > 1
                 and len(transposes) == 1
@@ -191,9 +217,14 @@ class ExecutionContext:
         dst = torch.from_numpy(np.asarray(dst_mask, dtype=np.float32)).to(
             B.device)[:, None]
         if self._expand_spgemm_ok(e, sr, transposes):
-            raise NotImplementedError(
-                "the SpGEMM hop-matrix expand needs BSR storage, which is "
-                "not ported yet")
+            # one masked mxm against the precomputed 1..max hop matrix
+            # replaces max_hops sequential hops; <!seeds> removes the
+            # closed-walk returns the loop's visited mask would have blocked
+            P = self._hop_matrix(e.rel, transposes[0], e.max_hops)
+            seeds0 = (B > 0).to(torch.float32)
+            reach = grb.mxm(P, B, sr, Descriptor(mask=seeds0,
+                                                 complement=True))
+            return ((reach * dst) > 0).to(torch.float32)
         if structural and grb.words_route_ok(M, B.shape[1]):
             # word-resident hop loop: pack once, hop on words with word-wise
             # visited blends ((a & ~v) | (b & ~v) == (a | b) & ~v), unpack

@@ -1,6 +1,6 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
-PyTorch version, and the k-hop slice on a CUDA graph against the same
-slice on the CPU.
+PyTorch version, and the k-hop slice (ELL, BitELL and BSR) on a CUDA graph
+against the same slice on the CPU.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -8,18 +8,21 @@ package, so on a machine with a card and without JAX it runs as
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Everything compared is integer or boolean: ``torch.equal``, bit for bit.
+Everything compared is integer or boolean: ``torch.equal``, bit for bit,
+except the BSR kernels' weighted modes (tolerance stated beside them).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import bitadj, ops
+from repro_torch.core import bsr as bsr_mod, semiring as S
 from repro_torch.core.bitadj import BitELL
+from repro_torch.core.bsr import BSR
 from repro_torch.core.ell import ELL
 from repro_torch.engine import QueryServer
 from repro_torch.graph import datagen
-from repro_torch.kernels import bitadj_mxv, bitmap_mxv
+from repro_torch.kernels import bitadj_mxv, bitmap_mxv, bsr_mxm, bsr_spgemm
 from repro_torch.query import execute
 
 pytestmark = pytest.mark.cuda
@@ -182,6 +185,165 @@ def test_server_reports_a_kernel_that_cannot_load(fmt, monkeypatch):
     srv = QueryServer(g)
     tmpl = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
     qids = [srv.submit(tmpl, seeds=[s]) for s in range(0, 512, 5)]
+    out = srv.flush()
+    assert srv.pending == 0
+    assert all("KernelError" in (out[q].error or "") for q in qids)
+    assert srv.stats["errors"] == len(qids)
+
+
+# -- BSR: kernels bsr_mxm and bsr_spgemm ---------------------------------------
+# Indicator, pair and bcast results are compared bit for bit (0/1 counts,
+# or one a + x picked by min / max); dot and dot_first with random weights
+# allow fp32 reordering only: rtol = atol = 1e-5 for sums of a few hundred
+# products. The plain versions run their products with TF32 off.
+SEMIRINGS = ["plus_times", "or_and", "plus_pair", "plus_first", "min_plus",
+             "max_plus"]
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _bsr_coo(rng, n, m, nnz, empty_rows=(), zeros=0):
+    r = rng.integers(0, n, size=nnz)
+    c = rng.integers(0, m, size=nnz)
+    keep = ~np.isin(r, list(empty_rows))
+    r, c = r[keep], c[keep]
+    v = rng.uniform(0.5, 2.0, size=len(r))
+    v[:zeros] = 0.0
+    return r, c, v
+
+
+def _same(got, want, sr):
+    if sr.mode in ("dot_indicator", "dot_pair", "bcast"):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# (n, m, F, block, rows left empty, explicit zeros): n % b != 0, ragged F,
+# empty block-rows, a non-square matrix, 128-tiles
+BSR_CASES = [(200, 150, 40, 32, range(64, 96), 0),
+             (130, 70, 1, 32, (), 0),
+             (300, 260, 130, 64, range(0, 64), 5),
+             (520, 400, 100, 128, range(128, 256), 0),
+             (33, 31, 7, 16, (), 1)]
+
+
+@pytest.mark.parametrize("srname", SEMIRINGS)
+@pytest.mark.parametrize("n,m,f,block,empty,zeros", BSR_CASES)
+def test_bsr_mxm_kernel_matches_plain(n, m, f, block, empty, zeros, srname,
+                                      no_tf32):
+    rng = np.random.default_rng(n + f)
+    r, c, v = _bsr_coo(rng, n, m, 6 * n, empty, zeros)
+    A = BSR.from_coo(r, c, v, (n, m), block=block, device="cuda")
+    X = torch.from_numpy(np.where(
+        rng.uniform(size=(m, f)) < 0.35, rng.uniform(0.5, 2.0, size=(m, f)),
+        0.0).astype(np.float32)).cuda()
+    M = torch.from_numpy((rng.uniform(size=(n, f)) < 0.5).astype(
+        np.float32)).cuda()
+    sr = S.get(srname)
+    for mask, comp in ((None, False), (M, False), (M, True)):
+        before = bsr_mxm.launches
+        got = bsr_mxm.bsr_mxm(A, X, sr, mask=mask, complement=comp)
+        torch.cuda.synchronize()
+        assert bsr_mxm.launches == before + 1
+        want = bsr_mxm.mask_epilogue(ops.bsr_mxm_plain(A, X, sr), mask,
+                                     comp, sr.identity)
+        _same(got, want, sr)
+
+
+@pytest.mark.parametrize("srname", ["plus_times", "or_and", "plus_pair",
+                                    "plus_first"])
+@pytest.mark.parametrize("block", [32, 128])
+def test_bsr_spgemm_kernel_matches_plain(srname, block, no_tf32):
+    rng = np.random.default_rng(block)
+    n, k, m = 3 * block + 5, 2 * block + 9, 3 * block - 7
+    ra, ca, va = _bsr_coo(rng, n, k, 40 * block, range(block, 2 * block))
+    rb, cb, vb = _bsr_coo(rng, k, m, 30 * block)
+    rm, cm, _ = _bsr_coo(rng, n, m, 200 * block)
+    A = BSR.from_coo(ra, ca, va, (n, k), block=block, device="cuda")
+    B = BSR.from_coo(rb, cb, vb, (k, m), block=block, device="cuda")
+    Mk = BSR.from_coo(rm, cm, None, (n, m), block=block, device="cuda")
+    sr = S.get(srname)
+    for mask, comp in ((None, False), (Mk, False), (Mk, True)):
+        plan = bsr_mod.spgemm_symbolic(A, B, mask, comp)
+        mb = None
+        if mask is not None:
+            sel = torch.from_numpy(np.clip(plan.mask_sel, 0, None)).long()
+            mb = mask.blocks[sel.cuda()] * torch.from_numpy(
+                plan.mask_sel >= 0).float().cuda()[:, None, None]
+        before = bsr_spgemm.launches
+        got = bsr_spgemm.spgemm_blocks(A.blocks, B.blocks, plan, sr,
+                                       mask_blocks=mb, complement=comp)
+        torch.cuda.synchronize()
+        assert bsr_spgemm.launches == before + 1
+        want = bsr_spgemm.spgemm_blocks_plain(A.blocks, B.blocks, plan, sr,
+                                              mb, comp)
+        _same(got, want, sr)
+
+
+BSR_SLICE = [
+    "MATCH (a)-[:KNOWS*1..2]->(b) WHERE id(a) IN [1, 7, 33] "
+    "RETURN a, count(DISTINCT b)",
+    "MATCH (a)-[:KNOWS*1..3]-(b) WHERE id(a) IN [0, 1, 2, 3] "
+    "RETURN a, count(DISTINCT b)",
+    "MATCH (a)<-[:KNOWS*2..3]-(b) WHERE id(a) IN [0, 3, 3] RETURN count(b)",
+    "MATCH (a)-[:KNOWS*1..2]->(b) WHERE id(a) = 5 RETURN a, b LIMIT 20",
+]
+
+
+@pytest.mark.parametrize("spgemm_expand", [True, False])
+def test_bsr_slice_on_cuda_matches_cpu(spgemm_expand):
+    from repro_torch.query.executor import ExecutionContext
+    gc = datagen.rmat_graph(9, fmt="bsr", device="cuda")
+    gh = datagen.rmat_graph(9, fmt="bsr", device="cpu")
+    cc = ExecutionContext(gc, spgemm_expand=spgemm_expand)
+    ch = ExecutionContext(gh, spgemm_expand=spgemm_expand)
+    m0, s0 = bsr_mxm.launches, bsr_spgemm.launches
+    for q in BSR_SLICE:
+        assert cc.run(q).rows == ch.run(q).rows, q
+    assert bsr_mxm.launches > m0
+    assert (bsr_spgemm.launches > s0) == spgemm_expand
+
+
+def test_bsr_server_on_cuda_launches_and_matches_cpu():
+    gc = datagen.rmat_graph(9, fmt="bsr", device="cuda")
+    gh = datagen.rmat_graph(9, fmt="bsr", device="cpu")
+    tmpl = ["MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)",
+            "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(b)"]
+    results = []
+    m0, s0 = bsr_mxm.launches, bsr_spgemm.launches
+    for g in (gc, gh):
+        srv = QueryServer(g)
+        qids = [srv.submit(tmpl[s % 2], seeds=[s]) for s in range(0, 512, 3)]
+        out = srv.flush()
+        assert all(out[q].error is None for q in qids)
+        results.append([out[q].rows for q in qids])
+    assert results[0] == results[1]
+    assert bsr_mxm.launches > m0 and bsr_spgemm.launches > s0
+
+
+def test_bsr_server_reports_a_kernel_that_cannot_load(monkeypatch):
+    """A BSR kernel that fails to build or load fails its batches: every
+    query reports the KernelError, none is answered another way."""
+    from repro_torch.kernels import KernelError, build
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bsr_mxm, "_bound", None)
+    monkeypatch.setattr(bsr_spgemm, "_bound", None)
+    g = datagen.rmat_graph(9, fmt="bsr", device="cuda")
+    tmpl = ["MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)",
+            "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(b)"]
+    srv = QueryServer(g)
+    qids = [srv.submit(tmpl[s % 2], seeds=[s]) for s in range(0, 512, 5)]
     out = srv.flush()
     assert srv.pending == 0
     assert all("KernelError" in (out[q].error or "") for q in qids)
