@@ -8,7 +8,11 @@ The main path is the paper's seeded k-hop count,
 16): ELL at scale 16 (what ``fmt="auto"`` picks), BitELL at scale 18, BSR
 at scale 16 (the float hop loop, kernel ``bsr_mxm``) and BSR at scale 14
 (the ``*1..2`` hop matrix built by SpGEMM, kernel ``bsr_spgemm``, then one
-``bsr_mxm`` per batch). Phases, each printing one JSON line:
+``bsr_mxm`` per batch); then the GraphChallenge analytics on an undirected
+Graph500 R-MAT scale-15 BSR graph through ``repro_torch.algorithms``:
+``triangle_count``, ``ktruss(k=4)``, ``similarity_matrix`` and
+``similarity`` (kernels ``bsr_spgemm``, ``bsr_ewise``, ``bsr_mxm``).
+Phases, each printing one JSON line:
 
   device    the card's name and power limit (nvidia-smi)
   build     every CUDA kernel built from ``src/repro_torch/kernels/csrc``
@@ -23,12 +27,20 @@ at scale 16 (the float hop loop, kernel ``bsr_mxm``) and BSR at scale 14
             ``repro_torch.query.reference`` (walk counts: against
             ``scipy.sparse`` products of the generator's edges)
   breakdown_*  where one 512-column batch's time goes
+  graph_analytics, triangles, ktruss, similarity
+            the analytics cell: its graph, then each call with the launch
+            counts zeroed just before and read just after, held against
+            ``scipy.sparse`` oracles (triangle count and every truss edge
+            and support exactly, Jaccard scores within 1e-6 relative)
+  library   one PyTorch call computing what a kernel computes, a yardstick
 
 then the kernels line, the nvidia-smi line, and the result line. Any
 failed check raises and the script exits non-zero without a result line;
-so does a host with no CUDA device. Tolerances: every comparison is bit
-for bit (words, 0/1 indicators, integer walk counts below 2^24, and
-min / max-plus picks), with TF32 off in the plain versions' products.
+so does a host with no CUDA device. Tolerances: every kernel comparison
+is bit for bit (words, 0/1 indicators, integer walk counts below 2^24,
+min / max-plus picks, and the element-wise modes), with TF32 off in the
+plain versions' products; Jaccard scores, float32 quotients, are held to
+1e-6 relative against float64 oracles.
 Run from the repository root:
 
     python3 chip_smoke.py
@@ -56,6 +68,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 QUERIES = 1024
 CHECKED = 32
 DEVICE = "cuda"                # where every graph and operand lives
+ANALYTICS_SCALE = 15           # the HPEC Graph Challenge's graph500 inputs
+                               # start at 18; cut to what one run can peel
+SIM_SOURCES = 64
 
 
 def check(ok, what):
@@ -107,15 +122,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from repro_torch.core import bitadj, ops
+    from repro_torch import algorithms as algo
+    from repro_torch.algorithms.similarity import degrees
+    from repro_torch.core import bitadj, grb, ops
+    from repro_torch.core import bsr as bsr_mod
     from repro_torch.core import semiring as S
     from repro_torch.core.bitadj import BitELL
     from repro_torch.core.bsr import BSR, spgemm_symbolic
     from repro_torch.core.ell import ELL
     from repro_torch.engine import QueryServer
     from repro_torch.graph.datagen import rmat_edges, rmat_graph
-    from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_mxm,
-                                     bsr_spgemm, build)
+    from repro_torch.graph.graph import GraphBuilder
+    from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_ewise,
+                                     bsr_mxm, bsr_spgemm, build)
     from repro_torch.engine.server import MAX_WIDTH
     from repro_torch.query.executor import ExecutionContext
     from repro_torch.query.parser import parse
@@ -126,10 +145,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counted = {"ell_mxv_packed": bitmap_mxv, "bitadj_mxv_packed": bitadj_mxv,
-               "bsr_mxm": bsr_mxm, "bsr_spgemm": bsr_spgemm}
+               "bsr_mxm": bsr_mxm, "bsr_spgemm": bsr_spgemm,
+               "bsr_ewise": bsr_ewise}
 
     def launches_now():
         return {k: mod.launches for k, mod in counted.items()}
+
+    def zero_launches():
+        for mod in counted.values():
+            mod.launches = 0
 
     peak = [0]              # device memory peak over the whole script
 
@@ -324,6 +348,53 @@ def main() -> int:
         emit_phase(**row)
         return row
 
+    def ewise_case(mode, A, B, op, tag, timed=False):
+        """Kernel 5 against its plain version on one plan of ``core.bsr``:
+        the payloads, then the pruned tiles and nnz, bit for bit."""
+        sel_a, sel_b, rows, cols, Bs = bsr_mod.ewise_plan(mode, A, B)
+        Bb = None if Bs is None else Bs.blocks
+
+        def kernel():
+            return bsr_ewise.map_tiles(A.blocks, sel_a, Bb, sel_b, mode, op)
+
+        def plain():
+            return bsr_ewise.map_tiles_plain(A.blocks, sel_a, Bb, sel_b, mode,
+                                             op)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"bsr_ewise == plain ({tag}, {mode})")
+        G = BSR.from_blocks_device(rows, cols, got, A.shape, A.block)
+        W = BSR.from_blocks_device(rows, cols, want, A.shape, A.block)
+        check(G.nnz == W.nnz and all(
+            torch.equal(getattr(G, f), getattr(W, f)) for f in (
+                "blocks", "block_rows", "block_cols", "valid", "row_ptr")),
+            f"bsr_ewise pruned tiles and nnz == plain ({tag}, {mode})")
+        b, T = A.block, len(sel_a)
+        row = dict(phase="kernel", kernel="bsr_ewise", shape=tag, card=card,
+                   mode=mode, op=None if op is None else str(op),
+                   block=b, n=A.shape[0], m=A.shape[1], tiles=T,
+                   absent_a=int((sel_a < 0).sum()),
+                   absent_b=None if sel_b is None else int((sel_b < 0).sum()),
+                   tiles_out=int(G.valid.sum()), nnz_out=G.nnz, equal=True,
+                   max_abs_err=abs_err(got, want))
+        del got, want, W
+        if timed:
+            # the data's need: each present operand tile read once, the
+            # selectors, each output tile written once; one fp32 operation
+            # per output entry
+            present = int((sel_a >= 0).sum()) + (
+                0 if sel_b is None else int((sel_b >= 0).sum()))
+            nbytes = ((present + T) * b * b * 4
+                      + T * 4 * (1 if sel_b is None else 2))
+            bound_ms, bound_by = bound(nbytes, T * b * b, FP32_FLOPS_PER_S)
+            row.update(kernel_ms=time_ms(torch, kernel),
+                       plain_ms=time_ms(torch, plain, reps=3, warmup=1),
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       library_ms=None)
+        emit_phase(**row)
+        return row
+
     # -- kernels at ragged small shapes ---------------------------------------
     r = rng.integers(0, 1000, size=6000)
     c = np.where(r < 32, rng.integers(0, 999, size=6000),
@@ -358,6 +429,31 @@ def main() -> int:
                 mask=BSR.from_coo(r, r, None, (1000, 1000), block=128,
                                   device=DEVICE), complement=True)
     del small_s, small_t, Xs, Ms
+    # bsr_ewise: b in {32, 64, 128}, n % b != 0, block-rows absent on either
+    # side, then an empty operand and a side absent everywhere
+    modes = [("union", S.ewise("min")), ("intersect", S.ewise("times")),
+             ("apply", S.ewise("mul", 0.5)), ("select", S.ewise("ge", 1.0)),
+             ("mask", None), ("mask_c", None)]
+    for b_, n_, m_ in ((32, 200, 150), (64, 300, 260), (128, 520, 400)):
+        ops_ = []
+        for skip in (range(b_, 2 * b_), range(2 * b_, 3 * b_)):
+            rr = rng.integers(0, n_, size=4 * n_)
+            cc = rng.integers(0, m_, size=4 * n_)
+            keep_ = ~np.isin(rr, list(skip))
+            vv = rng.choice([-2, -1, -0.5, 0.5, 1, 2], size=int(keep_.sum()))
+            ops_.append(BSR.from_coo(rr[keep_], cc[keep_], vv, (n_, m_),
+                                     block=b_, device=DEVICE))
+        for mode, op in modes:
+            ewise_case(mode, ops_[0], ops_[1], op,
+                       f"ragged {n_}x{m_} b={b_}")
+    empty = BSR.from_coo([], [], None, (n_, m_), block=b_, device=DEVICE)
+    for mode, op in modes:
+        ewise_case(mode, ops_[0], empty, op, f"ragged {n_}x{m_} b={b_}, "
+                   "B empty")
+        if mode not in bsr_ewise.UNARY_MODES:
+            ewise_case(mode, empty, ops_[0], op, f"ragged {n_}x{m_} "
+                       f"b={b_}, A empty")
+    del ops_, empty
 
     def serve(g, texts, needs, tag, want_fn, prime=False):
         """Submit every (text, seed), drive the server once with the launch
@@ -374,8 +470,7 @@ def main() -> int:
         check(len(warm) == 32 and all(v.error is None for v in warm.values()),
               f"{tag}: warm-up batch")
         srv = QueryServer(g)
-        for mod in counted.values():
-            mod.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         setup_peak = read_peak()    # since the line before: the warm-up
         torch.cuda.reset_peak_memory_stats()
@@ -615,6 +710,204 @@ def main() -> int:
     del g, A, AT
     release()
 
+    # -- analytics: Graph500 scale 15, undirected, BSR --------------------------
+    src, dst, n = rmat_edges(ANALYTICS_SCALE)
+    loop = src == dst
+    s_all = np.concatenate([src[~loop], dst[~loop]])
+    d_all = np.concatenate([dst[~loop], src[~loop]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = GraphBuilder(n).add_edges("KNOWS", s_all, d_all).build(
+        fmt="bsr", block=128, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rel = g.relations["KNOWS"]
+    A = rel.A
+    t0 = time.perf_counter()
+    Asp = undirected_csr(s_all, d_all, n)
+    sup = masked_support(Asp)
+    tri_want = int(round(sup.sum())) // 6
+    truss_want, rounds_want = peel(Asp, 4)
+    oracle_s = time.perf_counter() - t0
+    check(A.fmt == "bsr" and A.nvals == Asp.nnz, "analytics graph: every "
+          "undirected edge stored once")
+    emit_phase(phase="graph_analytics", card=card, scale=ANALYTICS_SCALE, n=n,
+               nnz=A.nvals, block=A.store.block,
+               tiles=int(A.store.valid.sum()),
+               gb_per_handle=A.store.blocks.numel() * 4 / 1e9,
+               handles=4, build_s=build_s, oracle_s=oracle_s,
+               memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    analytics = {k: 0 for k in counted}
+
+    def read_launches(phase_needs):
+        """Launches since the last zero, checked against what the phase
+        needs (kernel -> least count), added to the analytics totals."""
+        got = launches_now()
+        for k, need in phase_needs.items():
+            check(got[k] >= need and got[k] > 0,
+                  f"analytics: {k} launched {got[k]} times, needs {need}")
+        for k in analytics:
+            analytics[k] += got[k]
+        return {k: got[k] for k in phase_needs}
+
+    # triangles
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tri = int(algo.triangle_count(rel))
+    tri_s = time.perf_counter() - t0
+    launched = read_launches({"bsr_spgemm": 1})
+    check(tri == tri_want, f"triangles: {tri}, scipy {tri_want}")
+    check(launched["bsr_spgemm"] == 1, "triangles: one bsr_spgemm launch")
+    emit_phase(phase="triangles", card=card, count=tri, scipy=tri_want,
+               ms=1e3 * tri_s, plus_sum=6 * tri, past_2_24=6 * tri > 2 ** 24,
+               launches=launched)
+
+    # k-truss, k = 4, each round's steps timed by wrappers around the plan,
+    # the two kernels and the select (synchronised)
+    # each hook keeps its step's seconds and a count read off its result
+    # (the plan's tasks, the select's surviving entries), not the result
+    steps = {"spgemm_symbolic": [], "spgemm_blocks": [], "map_tiles": [],
+             "select_stored": []}
+    hooks = [(bsr_mod, "spgemm_symbolic", lambda p_: int(p_.valid.sum())),
+             (bsr_spgemm, "spgemm_blocks", lambda _: None),
+             (bsr_ewise, "map_tiles", lambda _: None),
+             (bsr_mod, "select_stored", lambda sel: sel.nnz)]
+    saved = [getattr(mod, name) for mod, name, _ in hooks]
+
+    def hook(name, fn, count):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            steps[name].append((time.perf_counter() - t, count(out)))
+            return out
+        return timed
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for (mod, name, count), fn in zip(hooks, saved):
+            setattr(mod, name, hook(name, fn, count))
+        T = algo.ktruss(rel, 4)
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name, _), fn in zip(hooks, saved):
+            setattr(mod, name, fn)
+    truss_s = time.perf_counter() - t0
+    nrounds = len(steps["spgemm_symbolic"])
+    launched = read_launches({"bsr_spgemm": nrounds, "bsr_ewise": nrounds})
+    check(launched["bsr_spgemm"] == nrounds,
+          f"ktruss: {launched['bsr_spgemm']} SpGEMMs for {nrounds} rounds")
+    per_round = [dict(tasks=tasks, symbolic_s=ts, spgemm_ms=1e3 * tk,
+                      select_ms=1e3 * te, surviving=kept)
+                 for (ts, tasks), (tk, _), (te, _), (_, kept) in zip(
+                     *(steps[k] for k in ("spgemm_symbolic", "spgemm_blocks",
+                                          "map_tiles", "select_stored")))]
+    del steps
+    r_, c_, v_ = T.store.to_coo()
+    got_key = r_ * n + c_
+    order = np.argsort(got_key)
+    want = truss_want.tocoo()
+    want_key = want.row.astype(np.int64) * n + want.col
+    worder = np.argsort(want_key)
+    check(nrounds == rounds_want, f"ktruss: {nrounds} rounds, scipy "
+          f"{rounds_want}")
+    check(np.array_equal(got_key[order], want_key[worder]),
+          "ktruss: the 4-truss edge set equals scipy's peeling")
+    check(np.array_equal(v_[order], want.data[worder]),
+          "ktruss: every support equals scipy's")
+    emit_phase(phase="ktruss", card=card, k=4, rounds=nrounds,
+               per_round=per_round, surviving=T.nvals,
+               tiles=int(T.store.valid.sum()), seconds=truss_s,
+               launches=launched)
+
+    # similarity: the sparse matrix on A's pattern, then 64 sources
+    deg_np = np.asarray(Asp.sum(axis=1)).ravel()
+    sources = np.random.default_rng(15).choice(np.nonzero(deg_np >= 1)[0],
+                                               SIM_SOURCES, replace=False)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    J = algo.similarity_matrix(rel, "jaccard")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    Ssrc = algo.similarity(rel, sources, "jaccard")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launched = read_launches({"bsr_mxm": 1, "bsr_spgemm": 1, "bsr_ewise": 1})
+    r_, c_, v_ = J.store.to_coo()
+    sc = sup.tocoo()
+    key, skey = r_ * n + c_, sc.row.astype(np.int64) * n + sc.col
+    order, sorder = np.argsort(key), np.argsort(skey)
+    check(np.array_equal(key[order], skey[sorder]),
+          "similarity_matrix: stored pattern == the edges with a common "
+          "neighbour")
+    cnt = sc.data[sorder]
+    want_v = cnt / (deg_np[sc.row[sorder]] + deg_np[sc.col[sorder]] - cnt)
+    err_mat = rel_err(v_[order], want_v)
+    check(err_mat <= 1e-6, f"similarity_matrix: relative error {err_mat}")
+    M = (Asp @ Asp[:, sources]).toarray()
+    den = deg_np[:, None] + deg_np[sources][None, :] - M
+    want_s = np.where(M > 0, M / np.where(M > 0, den, 1.0), 0.0)
+    got_s = Ssrc.cpu().numpy()
+    err_src = rel_err(got_s, want_s)
+    check(got_s.shape == (n, SIM_SOURCES) and err_src <= 1e-6,
+          f"similarity: shape {got_s.shape}, relative error {err_src}")
+    col = {int(s_): j for j, s_ in enumerate(sources)}
+    on = np.isin(c_, sources)
+    mat_vs_src = rel_err(got_s[r_[on], [col[int(x)] for x in c_[on]]],
+                         v_[on])
+    check(mat_vs_src <= 1e-6, f"similarity vs similarity_matrix on the "
+          f"stored pattern: relative error {mat_vs_src}")
+    emit_phase(phase="similarity", card=card, kind="jaccard", nnz=J.nvals,
+               matrix_ms=1e3 * (t1 - t0), sources=SIM_SOURCES,
+               sources_ms=1e3 * (t2 - t1), max_rel_err_matrix=err_mat,
+               max_rel_err_sources=err_src,
+               max_rel_err_sources_vs_matrix=mat_vs_src,
+               compared_on_pattern=int(on.sum()), launches=launched)
+    del J, Ssrc, M, want_s, got_s
+
+    # kernel 5 at the path's shapes: round 1's support (C<A> = A x A, the
+    # same product triangle_count and similarity_matrix take), the
+    # reciprocal denominators similarity_matrix builds, A, the 4-truss
+    C1 = grb.mxm(A, A, S.PLUS_PAIR, grb.Descriptor(mask=A)).store
+    deg = degrees(A).cpu().numpy()
+    rr, cc, vv = C1.to_coo()
+    recip = BSR.from_coo(rr, cc, (1.0 / np.maximum(deg[rr] + deg[cc] - vv,
+                                                   1.0)).astype(np.float32),
+                         C1.shape, block=C1.block, device=DEVICE)
+    tag15 = f"scale-{ANALYTICS_SCALE} support (the path's)"
+    ewise_case("select", C1, None, S.ewise("ge", 2.0), tag15, timed=True)
+    ewise_case("apply", C1, None, S.ewise("mul", 0.5), tag15, timed=True)
+    kern["bsr_ewise"] = ewise_case("intersect", C1, recip, S.ewise("times"),
+                                   tag15 + " x reciprocals", timed=True)
+    union_row = ewise_case("union", C1, A.store, S.ewise("plus"),
+                           tag15 + " + A", timed=True)
+    for mode in ("mask", "mask_c"):
+        ewise_case(mode, C1, T.store, None, tag15 + " against the 4-truss",
+                   timed=True)
+    for mode, X, Y, call in (
+            ("intersect", C1, recip, "A * B of coalesced CUDA COO tensors"),
+            ("union", C1, A.store,
+             "(A + B).coalesce() of coalesced CUDA COO tensors")):
+        ms, why = library_ewise(torch, mode, X, Y)
+        (kern["bsr_ewise"] if mode == "intersect" else union_row)[
+            "library_ms"] = ms
+        emit_phase(phase="library", kernel="bsr_ewise", card=card, mode=mode,
+                   call=call, library_ms=ms, reason=why)
+    emit_phase(phase="library", kernel="bsr_ewise", card=card,
+               mode="apply, select, mask, mask_c", library_ms=None,
+               reason="no single PyTorch call maps or filters the stored "
+               "values of a sparse tensor by a predicate or a mask pattern")
+    kern["bsr_ewise"]["launches"] = analytics["bsr_ewise"]
+    kern["bsr_spgemm"]["launches"] += analytics["bsr_spgemm"]
+    kern["bsr_mxm"]["launches"] += analytics["bsr_mxm"]
+    del g, rel, A, T, C1, recip, Asp, sup, truss_want
+    release()
+
     # -- the kernels line, the card, the result --------------------------------
     sources = {
         "ell_mxv_packed": ("src/repro_torch/kernels/csrc/ell_mxv_packed.cu",
@@ -626,6 +919,8 @@ def main() -> int:
                     "src/repro/kernels/bsr_mxm.py:112"),
         "bsr_spgemm": ("src/repro_torch/kernels/csrc/bsr_spgemm.cu",
                        "src/repro/kernels/bsr_spgemm.py:161"),
+        "bsr_ewise": ("src/repro_torch/kernels/csrc/bsr_ewise.cu",
+                      "src/repro/kernels/bsr_ewise.py:140"),
     }
     line = []
     for name, row in kern.items():
@@ -685,6 +980,71 @@ def walk_counts(src, dst, n):
     A = sp.csr_matrix((np.ones(len(key)), (key // n, key % n)), shape=(n, n))
     deg = np.asarray(A.sum(axis=1)).ravel()
     return (deg + A @ deg).astype(np.int64)
+
+
+def rel_err(got, want) -> float:
+    """Largest |got - want| / |want| (0 where both are 0; inf where only
+    want is)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.size == 0:
+        return 0.0
+    d = np.abs(got - want)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        r = np.where(d == 0, 0.0, d / np.abs(want))
+    return float(r.max())
+
+
+def undirected_csr(src, dst, n):
+    """The deduplicated 0/1 adjacency, scipy CSR on the host."""
+    import scipy.sparse as sp
+    key = np.unique(src * n + dst)
+    return sp.csr_matrix((np.ones(len(key)), (key // n, key % n)),
+                         shape=(n, n))
+
+
+def masked_support(A, step=4096):
+    """(A @ A) restricted to A's pattern, a row band at a time: each edge's
+    common-neighbour count, stored where it is at least 1."""
+    import scipy.sparse as sp
+    parts = []
+    for lo in range(0, A.shape[0], step):
+        band = A[lo:lo + step]
+        parts.append((band @ A).multiply(band))
+    return sp.vstack(parts).tocsr()
+
+
+def peel(A, k):
+    """The k-truss by scipy peeling: (support matrix of the truss, rounds),
+    the rounds counted as the port's loop counts them."""
+    cur, rounds = A, 0
+    while True:
+        S_ = masked_support(cur)
+        S_.data[S_.data < k - 2] = 0
+        S_.eliminate_zeros()
+        rounds += 1
+        if S_.nnz == cur.nnz or S_.nnz == 0:
+            return S_, rounds
+        cur = S_.copy()
+        cur.data[:] = 1.0
+
+
+def library_ewise(torch, mode, A, B):
+    """(ms, reason): PyTorch's own sparse element-wise op on the same
+    entries as coalesced CUDA COO tensors, the union ``(A + B).coalesce()``
+    or the intersection ``A * B``; None and why when it did not run."""
+    try:
+        def coo(store):
+            r, c, v = store.to_coo()
+            return torch.sparse_coo_tensor(
+                torch.from_numpy(np.stack([r, c])), torch.from_numpy(v),
+                store.shape).coalesce().to(DEVICE)
+        X, Y = coo(A), coo(B)
+        fn = ((lambda: (X + Y).coalesce()) if mode == "union"
+              else (lambda: X * Y))
+        return time_ms(torch, fn, reps=5), None
+    except Exception as e:         # the yardstick only; no phase depends on it
+        return None, f"{type(e).__name__}: {e}"[:300]
 
 
 def library_bsr_mm(torch, store, X):

@@ -234,3 +234,77 @@ def panels_mxm_words(tiles: torch.Tensor, cols: torch.Tensor,
 def mxm_words(b: BitELL, Xw: torch.Tensor) -> torch.Tensor:
     """(k-rows, W) packed frontier words -> (n, W) result words."""
     return panels_mxm_words(b.tiles, b.cols, Xw, b.shape[1])[:b.shape[0]]
+
+
+# ---------------------------------------------------------------------------
+# reductions and triangles straight off the bit-tiles (XLA in the JAX
+# package, no kernel there either)
+# ---------------------------------------------------------------------------
+_CHUNK_WORDS = 1 << 24    # words per chunk of the bit-spread intermediates
+
+
+def reduce_stored(s: BitELL, monoid, axis,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """plus / or reduction over the stored structure (SWAR popcounts,
+    counted in int64, never materialized); ``dtype`` out, float32 as in the
+    JAX package. ``or`` is "any stored entry"."""
+    tiles, cols = s.tiles, s.cols
+    n, k = s.shape
+    C = -(-k // TILE)
+    if axis == 1:
+        per = bitmap.popcount(tiles).sum(dim=1)            # (P, 32) rows
+        out = per.reshape(-1)[:n]
+    elif axis == 0:
+        shifts = torch.arange(TILE, dtype=torch.int32, device=tiles.device)
+        seg = torch.zeros((C + 1, TILE), dtype=torch.int64,
+                          device=tiles.device)          # sentinel bucket C
+        Pn, Sn, _ = tiles.shape
+        step = max(1, _CHUNK_WORDS // max(Sn * TILE * TILE, 1))
+        for p0 in range(0, Pn, step):
+            bits = (tiles[p0:p0 + step, :, :, None] >> shifts) & 1
+            seg.index_add_(0, cols[p0:p0 + step].reshape(-1).long(),
+                           bits.sum(dim=2).reshape(-1, TILE).long())
+        out = seg[:C].reshape(-1)[:k]
+    else:
+        out = bitmap.popcount(tiles).sum()
+    return (out > 0).to(dtype) if monoid.name == "or" else out.to(dtype)
+
+
+def triangle_count(s: BitELL, slot_chunk: int = 4) -> torch.Tensor:
+    """Triangles of a symmetric structural adjacency as AND + popcount over
+    tile pairs: for every stored edge bit (i, j) the common-neighbour count
+    is the popcount of ``rowbits[i] & rowbits[j]`` summed over column tiles
+    (the masked plus_pair product the float route runs), and the total
+    divides by 6. Counts in int64; returns the float64 quotient, exact
+    (the JAX package sums in float32)."""
+    tiles, cols = s.tiles, s.cols
+    n, k = s.shape
+    if n != k:
+        raise ValueError("triangle_count needs a square adjacency")
+    dev = tiles.device
+    Pn, Sn, _ = tiles.shape
+    C = -(-k // TILE)
+    # row bits: Brows[p, r, c] = the 32 column bits of row p*32+r in column
+    # tile c (each panel holds a column tile in at most one slot; sentinel
+    # slots land in the dropped bucket C)
+    Brows = torch.zeros((Pn, C + 1, TILE), dtype=torch.int32, device=dev)
+    Brows[torch.arange(Pn, device=dev)[:, None].expand(Pn, Sn),
+          cols.long()] = tiles
+    Brows = Brows[:, :C].transpose(1, 2).contiguous()     # (P, 32, C)
+    # neighbour-row panels gather by the slot's column tile (square: column
+    # tile c is row panel c); sentinel slots hit an all-zero panel
+    Bpad = torch.cat([Brows, torch.zeros((max(C + 1 - Pn, 1), TILE, C),
+                                         dtype=torch.int32, device=dev)])
+    shifts = torch.arange(TILE, dtype=torch.int32, device=dev)
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    step = max(1, _CHUNK_WORDS // (slot_chunk * TILE * TILE * max(C, 1)))
+    for p0 in range(0, Pn, step):
+        rows = Brows[p0:p0 + step]
+        for s0 in range(0, Sn, slot_chunk):
+            tc = tiles[p0:p0 + step, s0:s0 + slot_chunk]     # (p, sc, 32)
+            G = Bpad[cols[p0:p0 + step, s0:s0 + slot_chunk].long()]
+            inter = bitmap.popcount(rows[:, None, :, None, :]
+                                    & G[:, :, None, :, :]).sum(dim=-1)
+            bits = (tc[:, :, :, None] >> shifts) & 1      # (p, sc, 32r, 32b)
+            acc += (inter.long() * bits).sum()
+    return acc.to(torch.float64) / 6.0

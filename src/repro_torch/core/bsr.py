@@ -20,8 +20,10 @@ vectorised scatter straight into the final tile order (the JAX build loops
 over tiles on the host), and ``transpose`` transposes each tile on the
 device (the JAX build goes through a dense n x n on the host).
 
-The element-wise family (``ewise_add`` ... ``extract_ranges``) is not
-ported yet.
+The element-wise family (``ewise_add`` ... ``extract_ranges``) plans its
+output tiles on the host from the valid-tile key lists (the JAX package's
+code) and runs the numeric phase on the device through
+``kernels.bsr_ewise.map_tiles``; the payloads never leave the device.
 """
 from __future__ import annotations
 
@@ -529,3 +531,145 @@ def as_bsr(store, block: int) -> BSR:
         return reblock(store, block)
     return BSR.from_coo(*store.to_coo(), store.shape, block=block,
                         device=store.device)
+
+
+# ---------------------------------------------------------------------------
+# element-wise family: block-aligned sparse ops (GrB_eWiseAdd / eWiseMult /
+# GrB_apply / GxB_select), never materializing a dense operand
+# ---------------------------------------------------------------------------
+# Stored == nonzero; an absent entry renders as 0. Each op is a host plan
+# over tile keys (union / intersection of block coordinates, the
+# element-wise analog of the SpGEMM symbolic phase) and a numeric phase on
+# the device, ``kernels.bsr_ewise``. Results go through from_blocks_device,
+# so tiles that end up all-zero (a select that empties a tile, a cancelled
+# add) are pruned and nvals / fill_ratio stay truthful. Ops are named
+# (``semiring.ewise`` or a Monoid): a bare callable raises TypeError.
+
+def _check_same_shape(A: BSR, B: BSR, opname: str) -> None:
+    if A.shape != B.shape:
+        raise ValueError(f"{opname} shapes: {A.shape} vs {B.shape}")
+
+
+def _tile_keys(brows: np.ndarray, bcols: np.ndarray, nbc: int) -> np.ndarray:
+    return brows.astype(np.int64) * nbc + bcols.astype(np.int64)
+
+
+def _key_select(wanted: np.ndarray, keys: np.ndarray,
+                idx: np.ndarray) -> np.ndarray:
+    """For each key in ``wanted``, the tile index in ``idx`` holding it, or
+    -1 when no stored tile has that key. ``keys`` need not be sorted."""
+    out = np.full(len(wanted), -1, dtype=np.int32)
+    if len(keys) == 0 or len(wanted) == 0:
+        return out
+    order = np.argsort(keys)
+    keys, idx = keys[order], idx[order]
+    j = np.clip(np.searchsorted(keys, wanted), 0, len(keys) - 1)
+    hit = keys[j] == wanted
+    out[hit] = idx[j[hit]]
+    return out
+
+
+def ewise_plan(mode: str, A: BSR, B: Optional[BSR] = None):
+    """The host plan of one element-wise op: ``(sel_a, sel_b, rows, cols,
+    B)``, per output tile the A and B tile selectors (-1: absent), its
+    block coordinates, and B reblocked to A's tile size (None for the unary
+    modes, whose ``sel_b`` is None).
+
+      union      the union of both valid-tile key lists
+      intersect  their intersection: only tiles valid in both are gathered
+      apply, select   A's valid tiles
+      mask       A's tiles that have a mask tile (block-level prune)
+      mask_c     all of A's tiles: an absent mask tile reads as all-zero,
+                 which ``mask_c`` keeps whole
+    """
+    ia, ra, ca = A.valid_tiles()
+    if mode in ("apply", "select"):
+        return ia, None, ra, ca, None
+    _check_same_shape(A, B, f"bsr.{mode}")
+    B = reblock(B, A.block)
+    ib, rb, cb = B.valid_tiles()
+    nbc = A.nbcols
+    ka = _tile_keys(ra, ca, nbc)
+    kb = _tile_keys(rb, cb, nbc)
+    if mode in ("mask", "mask_c"):
+        sel_b = _key_select(ka, kb, ib)
+        if mode == "mask":
+            keep = sel_b >= 0
+            ia, ra, ca, sel_b = ia[keep], ra[keep], ca[keep], sel_b[keep]
+        return ia, sel_b, ra, ca, B
+    keys = np.union1d(ka, kb) if mode == "union" else np.intersect1d(ka, kb)
+    return (_key_select(keys, ka, ia), _key_select(keys, kb, ib),
+            (keys // nbc).astype(np.int32), (keys % nbc).astype(np.int32), B)
+
+
+def _ewise(mode: str, A: BSR, B: Optional[BSR], op) -> BSR:
+    """Plan on the host, map the tiles on the device
+    (``kernels.bsr_ewise``), prune emptied tiles."""
+    from repro_torch.kernels import bsr_ewise as _k   # kernels import core
+    sel_a, sel_b, rows, cols, B = ewise_plan(mode, A, B)
+    res = _k.map_tiles(A.blocks, sel_a, None if B is None else B.blocks,
+                       sel_b, mode, op)
+    return BSR.from_blocks_device(rows, cols, res, A.shape, A.block)
+
+
+def ewise_add(A: BSR, B: BSR, op) -> BSR:
+    """C = A (+) B, GraphBLAS *union* semantics over stored entries:
+    pattern(A) | pattern(B); op(a, b) where both store an entry, the stored
+    value unchanged where one side does (the absent side is never fed to
+    op)."""
+    return _ewise("union", A, B, op)
+
+
+def ewise_mult(A: BSR, B: BSR, op) -> BSR:
+    """C = A (.*) B, GraphBLAS *intersection* semantics: pattern(A) &
+    pattern(B), op(a, b) there."""
+    return _ewise("intersect", A, B, op)
+
+
+def apply_stored(A: BSR, f) -> BSR:
+    """GrB_apply over stored entries only: f(A[i,j]) where stored; zero
+    lanes inside a stored tile are absent and stay zero whatever f(0)."""
+    return _ewise("apply", A, None, f)
+
+
+def select_stored(A: BSR, pred) -> BSR:
+    """GxB_select: keep stored entries where pred(value); tiles the
+    predicate empties are pruned."""
+    return _ewise("select", A, None, pred)
+
+
+def mask_keep(A: BSR, M: BSR, complement: bool = False) -> BSR:
+    """A restricted to M's stored pattern (<M>), or to its absent pattern
+    (<!M>)."""
+    return _ewise("mask_c" if complement else "mask", A, M, None)
+
+
+def extract_ranges(A: BSR, r0: int, r1: int, c0: int, c1: int) -> BSR:
+    """Block-aligned GrB_extract: A[r0:r1, c0:c1] with r0 / c0 on tile
+    boundaries. Tile-list surgery on host coordinates; the payload gather
+    and the crop of boundary tiles run on the device."""
+    if r0 % A.block or c0 % A.block:
+        raise ValueError("extract_ranges needs block-aligned starts "
+                         f"(got {r0}, {c0} for block {A.block})")
+    b = A.block
+    br0, bc0 = r0 // b, c0 // b
+    br1, bc1 = -(-r1 // b), -(-c1 // b)
+    ia, ra, ca = A.valid_tiles()
+    keep = (ra >= br0) & (ra < br1) & (ca >= bc0) & (ca < bc1)
+    ia, ra, ca = ia[keep], ra[keep] - br0, ca[keep] - bc0
+    out_n, out_m = r1 - r0, c1 - c0
+    dev = A.device
+    if len(ia):
+        blk = A.blocks.to(torch.float32)[torch.from_numpy(
+            ia.astype(np.int64)).to(dev)]
+        # crop tiles that extend past the slice end (the crop pattern is
+        # host structural metadata; the multiply runs on the device)
+        rows_ok = torch.from_numpy(
+            (ra[:, None] * b + np.arange(b)[None, :]) < out_n).to(dev)
+        cols_ok = torch.from_numpy(
+            (ca[:, None] * b + np.arange(b)[None, :]) < out_m).to(dev)
+        blk = blk * (rows_ok[:, :, None] & cols_ok[:, None, :]).to(
+            torch.float32)
+    else:
+        blk = torch.zeros((0, b, b), dtype=torch.float32, device=dev)
+    return BSR.from_blocks_device(ra, ca, blk, (out_n, out_m), b)

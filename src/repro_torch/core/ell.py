@@ -68,6 +68,16 @@ class ELL:
                    values=torch.from_numpy(val).to(dev),
                    nnz=int(rows.shape[0]))
 
+    @staticmethod
+    def from_entries(keys, vals, shape, pad_deg_to: int = 8,
+                     device="cuda") -> "ELL":
+        """Build from flat row-major entry keys (``row * ncols + col``), the
+        spelling the COO set algebra (``core.coo``) hands back."""
+        w = max(shape[1], 1)
+        keys = np.asarray(keys, dtype=np.int64)
+        return ELL.from_coo(keys // w, keys % w, vals, shape,
+                            pad_deg_to=pad_deg_to, device=device)
+
     def sentinel_indices(self) -> torch.Tensor:
         """(n, max_deg) int32: each row's valid ``indices`` first, then k in
         every other slot, so a row ends at its first k. ``from_coo`` already

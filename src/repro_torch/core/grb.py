@@ -17,24 +17,35 @@ Port of ``repro.core.grb``, cut to what the k-hop MATCH path reaches:
   mxm_words               packed words in, packed words out — the per-hop
                           call of word-resident hop loops (BSR detours
                           through the float mxm on the device);
-  words_route_ok          the gate for those loops.
+  words_route_ok          the gate for those loops;
+  ewise_add / ewise_mult  the element-wise family over stored entries
+  apply / select          (union, intersection, GrB_apply, GxB_select),
+  extract / assign        GrB_extract / GrB_assign and GrB_reduce, with
+  reduce                  the descriptor blend on every operand kind.
 
 Where the JAX package asks ``jax.default_backend() == "tpu"`` (and, for
 BSR, its measured crossover) before taking a Pallas kernel, the port asks
 where the tensors lie: CUDA tensors launch the hand-written kernels
 (``kernels.ops``) at every width and fill, CPU tensors take their plain
-versions. Dense, delta and sharded storage and the element-wise family
-are not ported yet.
+versions. The JAX package's ``grb`` runs its BSR element-wise plans
+through XLA; the port's launch ``bsr_ewise`` on the card. Element-wise
+ops on BSR operands are named (``semiring.ewise`` or a Monoid); dense
+tensors and ELL take any callable. Dense storage handles, delta and
+sharded storage are not ported yet; dense operands of the element-wise
+family are raw tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
+from repro_torch.core import bitadj as _bitadj
 from repro_torch.core import bitmap as _bitmap
 from repro_torch.core import bsr as _bsr
+from repro_torch.core import coo as _coo
 from repro_torch.core import ops as _ops
 from repro_torch.core import semiring as S
 from repro_torch.core import xfer as _xfer
@@ -113,8 +124,8 @@ def _fmt_of(store) -> str:
         return "bitadj"
     raise NotImplementedError(
         f"storage {type(store).__name__} is not ported yet: the port holds "
-        f"BSR, ELL and BitELL (ROADMAP 'Modules to port' lists dense, delta "
-        f"and sharded storage)")
+        f"BSR, ELL and BitELL handles (ROADMAP 'Modules to port': dense "
+        f"storage, delta storage in item 9, sharded storage in item 10)")
 
 
 # -- the JAX package's BSR crossover (measured there on XLA-CPU for a TPU by
@@ -195,6 +206,25 @@ class GBMatrix:
         return f"GBMatrix{tag} {n}x{m} fmt={self.fmt} nvals={self.nvals}"
 
 
+def matrix(obj, rel: Optional[str] = None) -> GBMatrix:
+    """Adjacency handle from a Graph (and relation name), a Relation, a
+    GBMatrix or raw storage. Duck-typed, so ``core`` never imports
+    ``graph``: a Graph has ``relation()`` / ``relations``, a Relation
+    ``A`` / ``name``."""
+    if hasattr(obj, "relation") and hasattr(obj, "relations"):   # Graph
+        try:
+            r = obj.relation(rel)
+        except KeyError:
+            r = None
+        if r is None:
+            raise ValueError(f"no relation {rel!r} in graph "
+                             f"(have: {sorted(obj.relations)})")
+        obj = r
+    if hasattr(obj, "A") and hasattr(obj, "name"):               # Relation
+        return GBMatrix.wrap(obj.A)
+    return GBMatrix.wrap(obj)
+
+
 # ---------------------------------------------------------------------------
 # GrB_mxm
 # ---------------------------------------------------------------------------
@@ -224,16 +254,21 @@ def _mxm_packed(A: GBMatrix, B: torch.Tensor, sr: S.Semiring, d: Descriptor,
     return finalize(d, _bitmap.unpack(Yw, f), out, sr.identity)
 
 
+def _storage(x):
+    """A handle's store (BitELL as its cached ELL materialization); other
+    operands as they are."""
+    if isinstance(x, GBMatrix):
+        x = x.store
+    return x.to_ell() if isinstance(x, BitELL) else x
+
+
 def _mask_as_bsr(mask, block: int) -> Optional[BSR]:
-    """Structural BSR view of a descriptor mask for the SpGEMM path: a
-    handle is unwrapped, sparse masks convert through their entry lists
-    (BitELL by way of ELL), a dense tensor is tiled."""
-    if isinstance(mask, GBMatrix):
-        mask = mask.store
+    """Structural BSR view of a descriptor mask for the SpGEMM and sparse
+    element-wise paths: sparse masks convert through their entry lists, a
+    dense tensor is tiled."""
+    mask = _storage(mask)
     if mask is None:
         return None
-    if isinstance(mask, BitELL):
-        mask = mask.to_ell()
     if isinstance(mask, (BSR, ELL)):
         return _bsr.as_bsr(mask, block)
     return BSR.from_dense(mask, block=block)
@@ -331,3 +366,431 @@ def words_route_ok(A, f: int) -> bool:
     if A.fmt == "bitadj":
         return True
     return A.fmt == "ell" and _pack_wanted(f)
+
+
+# ---------------------------------------------------------------------------
+# element-wise family — GrB_eWiseAdd / eWiseMult / apply / select
+# ---------------------------------------------------------------------------
+# Dense tensors keep array semantics (an entry is stored iff nonzero). For
+# BSR / ELL operands:
+#
+#   ewise_add   pattern = union;        op(a, b) where both stored, the
+#               stored value where only one side is (absent never fed to op)
+#   ewise_mult  pattern = intersection; op(a, b) on the intersection
+#   apply       pattern = stored(x);    f applied to stored entries only
+#   select      stored entries passing pred, emptied tiles pruned
+#
+# and the descriptor blend writes *empty* (renders 0) outside the mask, not
+# the monoid identity, with accum merging by union. Sparse operands stay
+# sparse (block-aligned plans in core.bsr, COO set algebra in core.coo for
+# ELL); mixing a sparse operand with a dense tensor raises TypeError.
+
+def _operand_kind(x):
+    """('bsr' | 'ell' | 'dense', storage) of a handle, store or tensor.
+    BitELL takes its cached ELL materialization; storage the port does not
+    hold raises NotImplementedError (``_fmt_of``)."""
+    x = _storage(x)
+    if isinstance(x, BSR):
+        return "bsr", x
+    if isinstance(x, ELL):
+        return "ell", x
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return "dense", torch.as_tensor(x)
+    _fmt_of(x)
+
+
+def _ewise_pair(a, b, fn: str):
+    """Classify an operand pair into one path, coercing only sparse to
+    sparse (ELL joins a BSR partner through COO, never a dense one)."""
+    ka, sa = _operand_kind(a)
+    kb, sb = _operand_kind(b)
+    if (ka == "dense") != (kb == "dense"):
+        raise TypeError(
+            f"grb.{fn}: operand kinds must match — both dense tensors or "
+            f"both sparse matrices (GBMatrix/BSR/ELL); got {ka} and {kb}. "
+            f"Convert explicitly: BSR.from_dense(x) for the dense side or "
+            f"x.to_dense() for the sparse side.")
+    if tuple(sa.shape) != tuple(sb.shape):
+        raise ValueError(f"grb.{fn} shapes: {tuple(sa.shape)} vs "
+                         f"{tuple(sb.shape)}")
+    if ka == "dense":
+        return "dense", sa, sb
+    if "bsr" in (ka, kb):
+        if isinstance(sa, ELL):
+            sa = _bsr.as_bsr(sa, sb.block)
+        if isinstance(sb, ELL):
+            sb = _bsr.as_bsr(sb, sa.block)
+        return "bsr", sa, sb
+    return "ell", sa, sb
+
+
+def _dense_out(out, fn: str) -> Optional[torch.Tensor]:
+    if out is None:
+        return None
+    kind, store = _operand_kind(out)
+    if kind != "dense":
+        raise TypeError(f"grb.{fn}: dense operands need a dense out= tensor "
+                        f"(got a sparse {kind} matrix); densify it "
+                        f"explicitly with out.to_dense() if intended")
+    return store
+
+
+def _sparse_out_bsr(out, fn: str, block: int) -> Optional[BSR]:
+    if out is None:
+        return None
+    kind, store = _operand_kind(out)
+    if kind == "dense":
+        raise TypeError(f"grb.{fn}: sparse operands need a sparse out= "
+                        f"(GBMatrix/BSR/ELL) or None (got a dense tensor); "
+                        f"tile it with BSR.from_dense(out)")
+    return _bsr.as_bsr(store, block)
+
+
+def _sparse_out_entries(out, fn: str, shape=None):
+    """(keys, vals) of a sparse out= operand for the COO blend."""
+    if out is None:
+        return None, None
+    kind, store = _operand_kind(out)
+    if kind == "dense":
+        raise TypeError(f"grb.{fn}: sparse operands need a sparse out= "
+                        f"(GBMatrix/BSR/ELL) or None (got a dense tensor); "
+                        f"tile it with BSR.from_dense(out)")
+    if shape is not None and tuple(store.shape) != tuple(shape):
+        raise ValueError(f"grb.{fn}: out shape {store.shape} != result "
+                         f"{shape}")
+    return _ell_entries(store)
+
+
+def _mask_entry_keys(mask, shape) -> np.ndarray:
+    """Stored-entry key set of a descriptor mask (dense or sparse), checked
+    against the result shape."""
+    m = _storage(mask)
+    if tuple(m.shape) != tuple(shape):
+        raise ValueError(f"descriptor mask shape {tuple(m.shape)} != "
+                         f"result {tuple(shape)}")
+    ncols = max(shape[1], 1)
+    if isinstance(m, (BSR, ELL)):
+        r, c, _ = m.to_coo()
+    else:
+        r, c = np.nonzero(torch.as_tensor(m).cpu().numpy())
+    return _coo.keys_of(r, c, ncols)
+
+
+def _dense_union(a: torch.Tensor, b: torch.Tensor, op) -> torch.Tensor:
+    both = (a != 0) & (b != 0)
+    # a + b is exactly "the stored value" where only one side stores one
+    return torch.where(both, op(a, b), a + b)
+
+
+def _structural_finalize_dense(d: Descriptor, result: torch.Tensor,
+                               out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The blend rule with entry semantics on dense tensors: union-accum,
+    and *empty* (0), not a monoid identity, outside the mask."""
+    if d.accum is not None and out is not None:
+        z = _dense_union(out, result, d.accum.op)
+    else:
+        z = result
+    if d.mask is None:
+        return z
+    m = _storage(d.mask)
+    mask = m.to_dense() if isinstance(m, (BSR, ELL)) else torch.as_tensor(m)
+    keep = (mask == 0) if d.complement else (mask != 0)
+    outside = torch.zeros_like(z) if (out is None or d.replace) else out
+    return torch.where(keep, z, outside)
+
+
+def _structural_finalize_bsr(d: Descriptor, res: BSR,
+                             out: Optional[BSR]) -> BSR:
+    """The same blend rule out of block-aligned sparse plans (union, mask,
+    mask_c): the result never leaves tile-list form."""
+    if d.accum is not None and out is not None:
+        res = _bsr.ewise_add(out, res, d.accum)
+    if d.mask is None:
+        return res
+    M = _mask_as_bsr(d.mask, res.block)
+    z_in = _bsr.mask_keep(res, M, complement=d.complement)
+    if out is None or d.replace:
+        return z_in
+    old = _bsr.mask_keep(out, M, complement=not d.complement)
+    return _bsr.ewise_add(z_in, old, S.PLUS)            # disjoint patterns
+
+
+def _structural_finalize_ell(d: Descriptor, keys, vals, out, fn: str,
+                             shape, device) -> ELL:
+    """The blend rule on COO entry sets, rebuilt into ELL on ``device``."""
+    kc, vc = _sparse_out_entries(out, fn, shape)
+    mk = None if d.mask is None else _mask_entry_keys(d.mask, shape)
+    accum_op = None if d.accum is None else d.accum.op
+    k, v = _coo.blend(keys, vals, kc, vc, mk, d.complement, accum_op,
+                      d.replace)
+    return ELL.from_entries(*_coo.nonzero(k, v), shape, device=device)
+
+
+def _ell_entries(e) -> tuple:
+    r, c, v = e.to_coo()
+    return (_coo.keys_of(r, c, max(e.shape[1], 1)),
+            np.asarray(v, np.float32))
+
+
+def ewise_add(a, b, monoid, d: Descriptor = NULL, out=None):
+    """C<M> accum= A (+) B — GrB_eWiseAdd, union semantics (see above).
+
+    Both operands dense tensors -> a dense tensor; both sparse -> a sparse
+    GBMatrix (BSR when either side is BSR, else ELL). Mixed kinds raise
+    TypeError. ``monoid`` is a Monoid or a binary op (named, for BSR).
+    """
+    op = getattr(monoid, "op", monoid)
+    kind, A, B = _ewise_pair(a, b, "ewise_add")
+    if kind == "dense":
+        return _structural_finalize_dense(
+            d, _dense_union(A, B, op), _dense_out(out, "ewise_add"))
+    if kind == "bsr":
+        res = _bsr.ewise_add(A, B, op)
+        C = _sparse_out_bsr(out, "ewise_add", A.block)
+        return GBMatrix(_structural_finalize_bsr(d, res, C))
+    k, v = _coo.nonzero(*_coo.union(*_ell_entries(A), *_ell_entries(B), op))
+    return GBMatrix(_structural_finalize_ell(d, k, v, out, "ewise_add",
+                                             A.shape, A.device))
+
+
+def ewise_mult(a, b, op, d: Descriptor = NULL, out=None):
+    """C<M> accum= A (.*) B — GrB_eWiseMult, intersection semantics. Same
+    dispatch as :func:`ewise_add`; on BSR only tiles valid in both
+    patterns are gathered. ``op`` is a binary op (named, for BSR) or a
+    Monoid."""
+    op = getattr(op, "op", op)
+    kind, A, B = _ewise_pair(a, b, "ewise_mult")
+    if kind == "dense":
+        both = (A != 0) & (B != 0)
+        raw = torch.where(both, op(A, B), torch.zeros_like(A))
+        return _structural_finalize_dense(d, raw,
+                                          _dense_out(out, "ewise_mult"))
+    if kind == "bsr":
+        res = _bsr.ewise_mult(A, B, op)
+        C = _sparse_out_bsr(out, "ewise_mult", A.block)
+        return GBMatrix(_structural_finalize_bsr(d, res, C))
+    k, v = _coo.nonzero(*_coo.intersect(*_ell_entries(A), *_ell_entries(B),
+                                        op))
+    return GBMatrix(_structural_finalize_ell(d, k, v, out, "ewise_mult",
+                                             A.shape, A.device))
+
+
+def apply(f: Callable, x, d: Descriptor = NULL, out=None):
+    """C<M> accum= f(A) — GrB_apply over *stored* entries only: zero
+    entries of a dense tensor (and zero lanes inside stored BSR tiles) are
+    absent and stay zero whatever f(0). ``f`` is a unary op (named, for
+    BSR)."""
+    kind, X = _operand_kind(x)
+    if kind == "dense":
+        raw = torch.where(X != 0, f(X), torch.zeros_like(X))
+        return _structural_finalize_dense(d, raw, _dense_out(out, "apply"))
+    if kind == "bsr":
+        res = _bsr.apply_stored(X, f)
+        C = _sparse_out_bsr(out, "apply", X.block)
+        return GBMatrix(_structural_finalize_bsr(d, res, C))
+    k, v = _ell_entries(X)
+    k, v = _coo.nonzero(k, _coo.call_op(f, v))
+    return GBMatrix(_structural_finalize_ell(d, k, v, out, "apply", X.shape,
+                                             X.device))
+
+
+def select(pred: Callable, x, d: Descriptor = NULL, out=None):
+    """C<M> accum= A where pred(A) — GxB_select over stored entries, with
+    the descriptor semantics of :func:`apply`; sparse results prune tiles
+    the predicate emptied. ``pred`` is a predicate (named, for BSR)."""
+    kind, X = _operand_kind(x)
+    if kind == "dense":
+        raw = torch.where((X != 0) & pred(X), X, torch.zeros_like(X))
+        return _structural_finalize_dense(d, raw, _dense_out(out, "select"))
+    if kind == "bsr":
+        res = _bsr.select_stored(X, pred)
+        C = _sparse_out_bsr(out, "select", X.block)
+        return GBMatrix(_structural_finalize_bsr(d, res, C))
+    k, v = _ell_entries(X)
+    keep = _coo.call_op(pred, v) != 0
+    return GBMatrix(_structural_finalize_ell(d, k[keep], v[keep], out,
+                                             "select", X.shape, X.device))
+
+
+# ---------------------------------------------------------------------------
+# reduce — GrB_reduce
+# ---------------------------------------------------------------------------
+# plus / or over stored entries accumulate in float64 (exact for integer
+# sums below 2^53; the JAX package sums in float32, which is not exact
+# past 2^24) and return ``dtype``, float32 by default as in the JAX package.
+
+def _finish(out: torch.Tensor, monoid: S.Monoid, dtype) -> torch.Tensor:
+    return (out > 0).to(dtype) if monoid.name == "or" else out.to(dtype)
+
+
+def _reduce_bsr(s: BSR, monoid: S.Monoid, axis, dtype) -> torch.Tensor:
+    if monoid.name not in ("plus", "or") or axis not in (None, 0, 1):
+        # min / max need the absent entries (dense zeros) to take part
+        return monoid.reduce(s.to_dense(), dim=axis).to(dtype)
+    v = s.blocks if monoid.name == "plus" else (s.blocks != 0)
+    valid = s.valid.to(torch.float64)
+    if axis is None:
+        tot = (torch.sum(v, dim=(1, 2), dtype=torch.float64) * valid).sum()
+        return _finish(tot, monoid, dtype)
+    per = torch.sum(v, dim=2 if axis == 1 else 1, dtype=torch.float64)
+    per = per * valid[:, None]                              # (nnzb, block)
+    seg = s.block_rows if axis == 1 else s.block_cols
+    nseg = s.nbrows if axis == 1 else s.nbcols
+    out = torch.zeros((nseg, s.block), dtype=torch.float64, device=s.device)
+    out.index_add_(0, seg.long(), per)
+    out = out.reshape(-1)[:s.shape[0] if axis == 1 else s.shape[1]]
+    return _finish(out, monoid, dtype)
+
+
+def _reduce_ell(e: ELL, monoid: S.Monoid, axis, dtype) -> torch.Tensor:
+    if monoid.name not in ("plus", "or") or axis not in (None, 0, 1):
+        return monoid.reduce(e.to_dense(), dim=axis).to(dtype)
+    w = (e.values * e.mask).to(torch.float64)
+    if monoid.name == "or":
+        w = (w != 0).to(torch.float64)
+    if axis is None:
+        return _finish(w.sum(), monoid, dtype)
+    if axis == 1:
+        return _finish(w.sum(dim=1), monoid, dtype)
+    m = e.shape[1]
+    ids = torch.where(e.mask, e.indices, m).reshape(-1).long()
+    out = torch.zeros(m + 1, dtype=torch.float64, device=e.device)
+    out.index_add_(0, ids, w.reshape(-1))
+    return _finish(out[:m], monoid, dtype)
+
+
+def reduce(x, monoid: S.Monoid, axis=None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Monoid reduction (GrB_reduce). Sparse operands reduce over *stored*
+    entries without densifying for plus and or — full (axis None), per
+    column (0) and per row (1); "or" means "any stored entry", right for
+    negative values. min / max need the absent entries and go through
+    to_dense(). BitELL counts straight off its bit-tiles. Sparse plus
+    sums accumulate in float64; the result has ``dtype``."""
+    s = x.store if isinstance(x, GBMatrix) else x
+    if (isinstance(s, BitELL) and monoid.name in ("plus", "or")
+            and axis in (None, 0, 1)):
+        return _bitadj.reduce_stored(s, monoid, axis, dtype)
+    kind, X = _operand_kind(s)
+    if kind == "bsr":
+        return _reduce_bsr(X, monoid, axis, dtype)
+    if kind == "ell":
+        return _reduce_ell(X, monoid, axis, dtype)
+    return monoid.reduce(X.to(dtype), dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# extract / assign — GrB_extract / GrB_assign
+# ---------------------------------------------------------------------------
+def _norm_index(idx, n: int, fn: str) -> np.ndarray:
+    """A rows= / cols= argument as a unique int64 index vector."""
+    if idx is None:
+        return np.arange(n, dtype=np.int64)
+    if isinstance(idx, slice):
+        idx = range(*idx.indices(n))
+    if isinstance(idx, torch.Tensor):
+        idx = idx.cpu().numpy()
+    idx = np.asarray(idx, dtype=np.int64)
+    if idx.ndim != 1:
+        raise TypeError(f"grb.{fn}: indices must be 1-D (got ndim={idx.ndim})")
+    if len(idx) and (idx.min() < 0 or idx.max() >= n):
+        raise ValueError(f"grb.{fn}: index out of range for extent {n}")
+    if len(np.unique(idx)) != len(idx):
+        raise ValueError(f"grb.{fn}: duplicate indices are not supported")
+    return idx
+
+
+def _is_aligned_range(idx: np.ndarray, block: int) -> bool:
+    return (len(idx) > 0 and idx[0] % block == 0
+            and bool(np.all(np.diff(idx) == 1)))
+
+
+def extract(A, rows=None, cols=None, d: Descriptor = NULL, out=None):
+    """C<M> accum= A[rows, cols] — GrB_extract. rows / cols: None (all), a
+    slice or range, or a unique index vector. Dense tensors give dense
+    tensors; sparse operands stay sparse (BSR by tile surgery when both
+    ranges are contiguous and block-aligned, COO relabeling otherwise).
+    The descriptor applies to the (len(rows), len(cols)) result."""
+    kind, SA = _operand_kind(A)
+    n, m = SA.shape
+    I = _norm_index(rows, n, "extract")
+    J = _norm_index(cols, m, "extract")
+    if kind == "dense":
+        dev = SA.device
+        raw = SA[torch.from_numpy(I).to(dev)][:, torch.from_numpy(J).to(dev)]
+        return _structural_finalize_dense(d, raw, _dense_out(out, "extract"))
+    if kind == "bsr":
+        if _is_aligned_range(I, SA.block) and _is_aligned_range(J, SA.block):
+            sub = _bsr.extract_ranges(SA, int(I[0]), int(I[-1]) + 1,
+                                      int(J[0]), int(J[-1]) + 1)
+        else:
+            rr, cc, vv = _coo.extract_entries(*SA.to_coo(), I, J, n, m)
+            sub = BSR.from_coo(rr, cc, vv, (len(I), len(J)), block=SA.block,
+                               device=SA.device)
+        C = _sparse_out_bsr(out, "extract", sub.block)
+        return GBMatrix(_structural_finalize_bsr(d, sub, C))
+    rr, cc, vv = _coo.extract_entries(*SA.to_coo(), I, J, n, m)
+    k = _coo.keys_of(rr, cc, max(len(J), 1))
+    return GBMatrix(_structural_finalize_ell(d, k, vv, out, "extract",
+                                             (len(I), len(J)), SA.device))
+
+
+def assign(C, A, rows=None, cols=None, d: Descriptor = NULL):
+    """C(rows, cols)<M> accum= A — GrB_assign, functional (C is not
+    mutated; a new handle or tensor of C's kind is returned).
+
+    A is (len(rows), len(cols)), and so is the descriptor mask. Without
+    accum or mask the region's pattern is *replaced* by A's. Sparse C stays
+    sparse: its entries split by region on the host and the blend runs on
+    COO entry sets."""
+    kindC, SC = _operand_kind(C)
+    n, m = SC.shape
+    I = _norm_index(rows, n, "assign")
+    J = _norm_index(cols, m, "assign")
+    kindA, SA = _operand_kind(A)
+    if tuple(SA.shape) != (len(I), len(J)):
+        raise ValueError(f"grb.assign: A shape {tuple(SA.shape)} != region "
+                         f"{(len(I), len(J))}")
+    if len(I) == 0 or len(J) == 0:
+        return C if isinstance(C, GBMatrix) else SC
+    if kindC == "dense":
+        subA = SA if kindA == "dense" else SA.to_dense()
+        Ij = torch.from_numpy(I).to(SC.device)
+        Jj = torch.from_numpy(J).to(SC.device)
+        blended = _structural_finalize_dense(d, subA, SC[Ij][:, Jj])
+        res = SC.clone()
+        res[Ij[:, None], Jj[None, :]] = blended
+        return res
+    # sparse C: split stored entries by region, blend the local entry set,
+    # reassemble — COO set algebra end to end
+    r, c, v = SC.to_coo()
+    lutr = np.full(n, -1, dtype=np.int64)
+    lutr[I] = np.arange(len(I))
+    lutc = np.full(m, -1, dtype=np.int64)
+    lutc[J] = np.arange(len(J))
+    inreg = (lutr[r] >= 0) & (lutc[c] >= 0)
+    w = len(J)
+    kc = _coo.keys_of(lutr[r[inreg]], lutc[c[inreg]], w)
+    vc = np.asarray(v[inreg], np.float32)
+    if kindA == "dense":
+        dense = SA.cpu().numpy()
+        ar, ac = np.nonzero(dense)
+        ka = _coo.keys_of(ar, ac, w)
+        va = dense[ar, ac].astype(np.float32)
+    else:
+        ka, va = _ell_entries(SA)
+    mk = None if d.mask is None else _mask_entry_keys(d.mask,
+                                                      (len(I), len(J)))
+    accum_op = None if d.accum is None else d.accum.op
+    k, val = _coo.blend(ka, va, kc, vc, mk, d.complement, accum_op,
+                        d.replace)
+    k, val = _coo.nonzero(k, val)
+    gr = np.concatenate([r[~inreg], I[k // w]])
+    gc = np.concatenate([c[~inreg], J[k % w]])
+    gv = np.concatenate([np.asarray(v[~inreg], np.float32), val])
+    if kindC == "bsr":
+        store = BSR.from_coo(gr, gc, gv, (n, m), block=SC.block,
+                             device=SC.device)
+    else:
+        store = ELL.from_coo(gr, gc, gv, (n, m), device=SC.device)
+    return GBMatrix(store)

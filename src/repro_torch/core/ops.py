@@ -101,8 +101,12 @@ def ell_mxm(A: ELL, X: torch.Tensor, sr: S.Semiring) -> torch.Tensor:
     ident = torch.tensor(sr.identity, dtype=torch.float32, device=X.device)
     if sr.mode == "dot":
         term = torch.where(m, w * Xg, ident)
-    elif sr.mode == "dot_indicator":
+    elif sr.mode in ("dot_indicator", "dot_pair"):
         term = torch.where(m & (Xg != 0), torch.ones_like(Xg), ident)
+    elif sr.mode == "dot_first":
+        term = torch.where(m & (Xg != 0), w, ident)
+    elif sr.mode == "bcast":
+        term = torch.where(m, sr.mul(w, Xg), ident)
     else:
         raise NotImplementedError(sr.mode)
     y = sr.add.reduce(term, dim=1)

@@ -11,13 +11,111 @@ Port of ``repro.core.semiring``. A semiring is (add monoid, multiply op);
 
 ``dense_mxm`` is the dense oracle every sparse route is held against, and
 ``structural_dense`` encodes absent entries for it.
+
+Element-wise ops are named (``ewise``): the BSR element-wise kernel cannot
+call a Python function, so it takes an op code and one float32 scalar. An
+``EwiseOp`` is also a plain callable on tensors, so the same object serves
+dense and ELL operands, and each ``Monoid``'s op is one (``or`` is ``max``
+over 0/1 indicators, as in the JAX package).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
+
+
+# name -> (kind, kernel code, function of the operands and the scalar). The
+# codes are ``csrc/bsr_ewise.cu``'s.
+_EWISE = {
+    "plus": ("binary", 0, lambda a, b, s: a + b),
+    "times": ("binary", 1, lambda a, b, s: a * b),
+    "min": ("binary", 2, lambda a, b, s: torch.minimum(a, b)),
+    "max": ("binary", 3, lambda a, b, s: torch.maximum(a, b)),
+    "first": ("binary", 4, lambda a, b, s: a),
+    "second": ("binary", 5, lambda a, b, s: b),
+    "pair": ("binary", 6, lambda a, b, s: torch.ones_like(a)),
+    "minus": ("binary", 7, lambda a, b, s: a - b),
+    "identity": ("unary", 8, lambda a, s: a),
+    "ainv": ("unary", 9, lambda a, s: -a),
+    "abs": ("unary", 10, lambda a, s: torch.abs(a)),
+    "one": ("unary", 11, lambda a, s: torch.ones_like(a)),
+    "mul": ("unary", 12, lambda a, s: a * s),
+    "add": ("unary", 13, lambda a, s: a + s),
+    "ge": ("predicate", 14, lambda a, s: a >= s),
+    "gt": ("predicate", 15, lambda a, s: a > s),
+    "le": ("predicate", 16, lambda a, s: a <= s),
+    "lt": ("predicate", 17, lambda a, s: a < s),
+    "eq": ("predicate", 18, lambda a, s: a == s),
+    "ne": ("predicate", 19, lambda a, s: a != s),
+}
+_SCALAR_OPS = ("mul", "add", "ge", "gt", "le", "lt", "eq", "ne")
+
+
+@dataclasses.dataclass(frozen=True)
+class EwiseOp:
+    """A named element-wise op: ``kind`` is "binary", "unary" or
+    "predicate", ``scalar`` the float32 operand of mul / add and of the
+    comparisons. Calling it applies its torch function."""
+    name: str
+    scalar: float = 0.0
+
+    @property
+    def kind(self) -> str:
+        return _EWISE[self.name][0]
+
+    @property
+    def code(self) -> int:
+        return _EWISE[self.name][1]
+
+    def __call__(self, *operands):
+        return _EWISE[self.name][2](*operands, self.scalar)
+
+    def __str__(self) -> str:
+        return (f"{self.name}({self.scalar:g})" if self.name in _SCALAR_OPS
+                else self.name)
+
+
+def ewise(name: str, scalar=None) -> EwiseOp:
+    """The named op ``name`` (``ewise_names()``); mul, add and the
+    comparisons take a scalar, rounded to float32 as the kernel reads it."""
+    if name not in _EWISE:
+        raise ValueError(f"unknown element-wise op {name!r}; "
+                         f"named ops: {ewise_names()}")
+    if (scalar is None) == (name in _SCALAR_OPS):
+        raise ValueError(f"element-wise op {name!r} "
+                         + ("needs a scalar" if scalar is None
+                            else "takes no scalar"))
+    return EwiseOp(name, 0.0 if scalar is None else
+                   float(np.float32(scalar)))
+
+
+def ewise_names() -> str:
+    """The named ops by kind, for messages."""
+    kinds = {}
+    for name, (kind, _, _) in _EWISE.items():
+        kinds.setdefault(kind, []).append(
+            f"{name}(s)" if name in _SCALAR_OPS else name)
+    return "; ".join(f"{k}: {', '.join(v)}" for k, v in kinds.items())
+
+
+def named_op(op, kinds, where: str) -> EwiseOp:
+    """``op`` as a named op of one of ``kinds``: an ``EwiseOp`` as it is, a
+    ``Monoid`` by its op. A bare callable raises TypeError: the BSR
+    element-wise kernel takes named ops only."""
+    op = getattr(op, "op", op) if isinstance(op, Monoid) else op
+    if not isinstance(op, EwiseOp):
+        raise TypeError(
+            f"{where}: BSR operands take a named element-wise op "
+            f"(semiring.ewise(name[, scalar]) or a Monoid), not "
+            f"{getattr(op, '__name__', type(op).__name__)}; named ops: "
+            f"{ewise_names()}")
+    if op.kind not in kinds:
+        raise TypeError(f"{where}: needs a {' or '.join(kinds)} op, got "
+                        f"{op.name} ({op.kind})")
+    return op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,20 +124,22 @@ class Monoid:
     op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     identity: float
 
-    def reduce(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def reduce(self, x: torch.Tensor, dim=None) -> torch.Tensor:
+        """Reduce over ``dim`` (None: every entry)."""
+        dims = () if dim is None else dim
         if self.name == "plus":
             return torch.sum(x, dim=dim)
         if self.name in ("or", "max"):
-            return torch.amax(x, dim=dim)
+            return torch.amax(x, dim=dims)
         if self.name == "min":
-            return torch.amin(x, dim=dim)
+            return torch.amin(x, dim=dims)
         raise NotImplementedError(self.name)
 
 
-PLUS = Monoid("plus", lambda a, b: a + b, 0.0)
-MIN = Monoid("min", torch.minimum, float("inf"))
-MAX = Monoid("max", torch.maximum, float("-inf"))
-OR = Monoid("or", torch.maximum, 0.0)  # over {0,1} indicators
+PLUS = Monoid("plus", ewise("plus"), 0.0)
+MIN = Monoid("min", ewise("min"), float("inf"))
+MAX = Monoid("max", ewise("max"), float("-inf"))
+OR = Monoid("or", ewise("max"), 0.0)  # over {0,1} indicators
 
 
 @dataclasses.dataclass(frozen=True)

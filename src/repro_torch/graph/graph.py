@@ -156,9 +156,28 @@ def _make_handle(name, src, dst, w, n, fmt, block,
 # ---------------------------------------------------------------------------
 # adopting existing storage arrays
 # ---------------------------------------------------------------------------
+_BSR_ARRAYS = ("block_rows", "block_cols", "first", "last", "valid",
+               "row_ptr")
+
+
 def _store_from_arrays(arrays: dict, n: int, dev: torch.device):
-    """ELL from ``indices/mask/values`` or BitELL from ``tiles/cols``
-    (uint32 or int32 words), as numpy arrays, for an n x n relation."""
+    """ELL from ``indices/mask/values``, BitELL from ``tiles/cols`` (uint32
+    or int32 words) or BSR from ``blocks`` and its tile lists, as numpy
+    arrays, for an n x n relation."""
+    if "blocks" in arrays:
+        blocks = torch.from_numpy(
+            np.asarray(arrays["blocks"], np.float32).copy()).to(dev)
+        em = arrays.get("emask")
+        emask = None if em is None else torch.from_numpy(
+            np.asarray(em, bool).copy()).to(dev)
+        lists = {k: torch.from_numpy(np.asarray(arrays[k], np.int32).copy())
+                 .to(dev) for k in _BSR_ARRAYS}
+        stored = (blocks != 0) if emask is None else emask
+        nnz = arrays.get("nnz")
+        if nnz is None:
+            nnz = int((stored & (lists["valid"] != 0)[:, None, None]).sum())
+        return BSR(shape=(n, n), block=int(blocks.shape[1]), blocks=blocks,
+                   nnz=int(nnz), emask=emask, **lists)
     if "tiles" in arrays:
         tiles = np.ascontiguousarray(arrays["tiles"]).view(np.int32)
         t = torch.from_numpy(tiles.copy()).to(dev)
@@ -182,8 +201,11 @@ def from_arrays(n: int, relations: dict, adj=None, labels=None,
     """A Graph over existing storage arrays, rebuilding nothing.
 
     relations  name -> (forward, transpose), each a dict of numpy arrays:
-               ``indices``/``mask``/``values`` (ELL) or ``tiles``/``cols``
-               (BitELL, sentinel column tile C = ceil(n/32))
+               ``indices``/``mask``/``values`` (ELL), ``tiles``/``cols``
+               (BitELL, sentinel column tile C = ceil(n/32)) or
+               ``blocks``/``block_rows``/``block_cols``/``first``/``last``/
+               ``valid``/``row_ptr`` and optionally ``emask``, ``nnz``
+               (BSR)
     adj        (forward, transpose) of the union relation, or None
     labels     label -> bool (n,);  node_props  prop -> float32 (n,)
     """

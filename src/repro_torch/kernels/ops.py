@@ -1,7 +1,6 @@
 """Dispatch wrappers for the hand-written kernels.
 
-Port of ``repro.kernels.ops`` (all entries but ``bsr_ewise``, which waits
-for the element-wise family). Each takes a raw store or a ``GBMatrix``
+Port of ``repro.kernels.ops``. Each takes a raw store or a ``GBMatrix``
 handle. On CUDA tensors the kernel launches; on CPU tensors the plain
 version runs.
 """
@@ -31,6 +30,27 @@ def bitadj_mxv_packed(A, Xw: torch.Tensor) -> torch.Tensor:
     """Bit-tile or_and product over BitELL (``kernels.bitadj_mxv``)."""
     from repro_torch.kernels import bitadj_mxv as _ba
     return _ba.bitadj_mxv_packed(getattr(A, "store", A), Xw)
+
+
+def bsr_ewise(A, B, mode: str, op=None):
+    """The BSR element-wise family through ``kernels.bsr_ewise`` (the
+    ``core.bsr`` plans). ``mode`` is one of union | intersect | apply |
+    select | mask | mask_c; the unary modes (apply, select) ignore ``B``.
+    ``op`` is a named op of ``core.semiring`` or a Monoid."""
+    from repro_torch.core import bsr as _b
+    A = getattr(A, "store", A)
+    B = getattr(B, "store", B)
+    if mode == "union":
+        return _b.ewise_add(A, B, op)
+    if mode == "intersect":
+        return _b.ewise_mult(A, B, op)
+    if mode == "apply":
+        return _b.apply_stored(A, op)
+    if mode == "select":
+        return _b.select_stored(A, op)
+    if mode in ("mask", "mask_c"):
+        return _b.mask_keep(A, B, complement=mode == "mask_c")
+    raise ValueError(f"bsr_ewise mode {mode!r}")
 
 
 def bsr_spgemm(A, B, sr, *, mask=None, complement: bool = False):

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
-PyTorch version, and the k-hop slice (ELL, BitELL and BSR) on a CUDA graph
-against the same slice on the CPU.
+PyTorch version, the k-hop slice (ELL, BitELL and BSR) on a CUDA graph
+against the same slice on the CPU, and the analytics (triangles, k-truss,
+similarity) on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -22,7 +23,8 @@ from repro_torch.core.bsr import BSR
 from repro_torch.core.ell import ELL
 from repro_torch.engine import QueryServer
 from repro_torch.graph import datagen
-from repro_torch.kernels import bitadj_mxv, bitmap_mxv, bsr_mxm, bsr_spgemm
+from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_ewise, bsr_mxm,
+                                 bsr_spgemm)
 from repro_torch.query import execute
 
 pytestmark = pytest.mark.cuda
@@ -348,3 +350,126 @@ def test_bsr_server_reports_a_kernel_that_cannot_load(monkeypatch):
     assert srv.pending == 0
     assert all("KernelError" in (out[q].error or "") for q in qids)
     assert srv.stats["errors"] == len(qids)
+
+
+# -- BSR element-wise: kernel bsr_ewise ----------------------------------------
+# Every mode is a select, a single fp32 op or a copy on each entry, so the
+# kernel and the plain version agree bit for bit.
+EWISE_OPS = {
+    "union": [S.ewise(n) for n in ("plus", "times", "min", "max", "first",
+                                   "second", "pair", "minus")],
+    "intersect": [S.ewise(n) for n in ("plus", "times", "min", "minus")],
+    "apply": [S.ewise("identity"), S.ewise("ainv"), S.ewise("abs"),
+              S.ewise("one"), S.ewise("mul", 0.3), S.ewise("add", -1.0),
+              S.ewise("gt", 0.0)],
+    "select": [S.ewise(n, s) for n, s in (("ge", 1.0), ("gt", 0.0),
+                                          ("le", -1.0), ("lt", 0.5),
+                                          ("eq", 1.0), ("ne", 1.0),
+                                          ("ge", 9.0))],
+    "mask": [None],
+    "mask_c": [None],
+}
+
+
+def _ewise_operands(rng, nblocks, b, T):
+    """Tiles with values in {+-0.5 .. +-2} at 30% density, some all-zero,
+    and T selectors per side with absent (-1) slots on both sides."""
+    dense = rng.choice([-2, -1, -0.5, 0.5, 1, 2], size=(nblocks, b, b))
+    keep = rng.uniform(size=(nblocks, b, b)) < 0.3
+    tiles = np.where(keep, dense, 0.0).astype(np.float32)
+    tiles[::7] = 0.0
+    sa = rng.integers(-1, nblocks, size=T).astype(np.int32)
+    sb = rng.integers(-1, nblocks, size=T).astype(np.int32)
+    return torch.from_numpy(tiles).cuda(), sa, sb
+
+
+@pytest.mark.parametrize("mode", list(EWISE_OPS))
+@pytest.mark.parametrize("b,T", [(32, 1), (32, 97), (64, 40), (128, 33),
+                                 (33, 20), (128, 0)])
+def test_bsr_ewise_kernel_matches_plain(mode, b, T):
+    rng = np.random.default_rng(b + T)
+    A, sa, sb = _ewise_operands(rng, 12, b, T)
+    B, _, _ = _ewise_operands(rng, 9, b, 1)
+    sb = np.minimum(sb, 8)
+    unary = mode in bsr_ewise.UNARY_MODES
+    for op in EWISE_OPS[mode]:
+        before = bsr_ewise.launches
+        got = bsr_ewise.map_tiles(A, sa, None if unary else B,
+                                  None if unary else sb, mode, op)
+        torch.cuda.synchronize()
+        assert bsr_ewise.launches == before + (1 if T else 0)
+        want = bsr_ewise.map_tiles_plain(A, sa, B, sb, mode, op)
+        assert got.shape == (T, b, b) and torch.equal(got, want), (mode, op)
+
+
+def test_bsr_ewise_kernel_on_empty_and_absent_operands():
+    """An operand with no tiles, and a side absent everywhere."""
+    rng = np.random.default_rng(3)
+    A, sa, _ = _ewise_operands(rng, 6, 32, 50)
+    empty = torch.zeros((0, 32, 32), device="cuda")
+    none = np.full(50, -1, np.int32)
+    for mode in ("union", "intersect", "mask", "mask_c"):
+        op = EWISE_OPS[mode][0]
+        got = bsr_ewise.map_tiles(A, sa, empty, none, mode, op)
+        want = bsr_ewise.map_tiles_plain(A, sa, empty, none, mode, op)
+        assert torch.equal(got, want), mode
+        got = bsr_ewise.map_tiles(empty, none, A, sa, mode, op)
+        want = bsr_ewise.map_tiles_plain(empty, none, A, sa, mode, op)
+        assert torch.equal(got, want), mode
+
+
+def test_bsr_ewise_rejects_mixed_devices_and_bare_callables():
+    rng = np.random.default_rng(4)
+    A, sa, sb = _ewise_operands(rng, 6, 32, 10)
+    with pytest.raises(ValueError, match="device"):
+        bsr_ewise.map_tiles(A, sa, A.cpu(), sb, "union", S.PLUS)
+    with pytest.raises(TypeError, match="named"):
+        bsr_ewise.map_tiles(A, sa, A, sb, "union", lambda a, b: a + b)
+
+
+def test_bsr_ewise_kernel_that_cannot_load_raises(monkeypatch):
+    from repro_torch.kernels import KernelError, build
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bsr_ewise, "_bound", None)
+    rng = np.random.default_rng(5)
+    A, sa, _ = _ewise_operands(rng, 6, 32, 10)
+    before = bsr_ewise.launches
+    with pytest.raises(KernelError):
+        bsr_ewise.map_tiles(A, sa, None, None, "select", S.ewise("gt", 0.0))
+    assert bsr_ewise.launches == before
+
+
+def _analytics_graph(scale, device):
+    from repro_torch.graph.graph import GraphBuilder
+    src, dst, n = datagen.rmat_edges(scale)
+    keep = src != dst
+    s, d = src[keep], dst[keep]
+    return GraphBuilder(n).add_edges("KNOWS", np.concatenate([s, d]),
+                                     np.concatenate([d, s])).build(
+                                         fmt="bsr", device=device)
+
+
+def test_analytics_on_cuda_launch_and_match_cpu():
+    """Triangles, k-truss and similarity on a CUDA BSR graph launch
+    bsr_spgemm and bsr_ewise and give the CPU's answers."""
+    from repro_torch import algorithms as algo
+    gc, gh = _analytics_graph(10, "cuda"), _analytics_graph(10, "cpu")
+    e0, s0, m0 = bsr_ewise.launches, bsr_spgemm.launches, bsr_mxm.launches
+    assert int(algo.triangle_count(gc, "KNOWS")) == \
+        int(algo.triangle_count(gh, "KNOWS"))
+    tc, th = algo.ktruss(gc, 4, rel="KNOWS"), algo.ktruss(gh, 4, rel="KNOWS")
+    for a, b in zip(tc.store.to_coo(), th.store.to_coo()):
+        assert np.array_equal(a, b)
+    jc = algo.similarity_matrix(gc, "jaccard", rel="KNOWS")
+    jh = algo.similarity_matrix(gh, "jaccard", rel="KNOWS")
+    for a, b in zip(jc.store.to_coo(), jh.store.to_coo()):
+        assert np.array_equal(a, b)
+    src = np.arange(0, 1024, 17)
+    assert torch.equal(algo.similarity(gc, src, rel="KNOWS").cpu(),
+                       algo.similarity(gh, src, rel="KNOWS"))
+    assert bsr_ewise.launches > e0 and bsr_spgemm.launches > s0
+    assert bsr_mxm.launches > m0
