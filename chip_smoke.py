@@ -12,6 +12,8 @@ at scale 16 (the float hop loop, kernel ``bsr_mxm``) and BSR at scale 14
 Graph500 R-MAT scale-15 BSR graph through ``repro_torch.algorithms``:
 ``triangle_count``, ``ktruss(k=4)``, ``similarity_matrix`` and
 ``similarity`` (kernels ``bsr_spgemm``, ``bsr_ewise``, ``bsr_mxm``).
+``bsr_spgemm`` has two kernels: the path takes the entry kernel
+(sparse tiles), the tile kernel runs in the fill sweep and beside it.
 Phases, each printing one JSON line:
 
   device    the card's name and power limit (nvidia-smi)
@@ -19,7 +21,17 @@ Phases, each printing one JSON line:
   kernel    each kernel against its plain PyTorch version at a ragged
             small shape and at the path's own shapes, with its time, the
             plain version's time, the card's bound and, where one PyTorch
-            call computes the same product, that call's time
+            call computes the same product, that call's time; for
+            ``bsr_spgemm`` both kernels (each with its own bound), the
+            entry-form build, the dispatch, the host plan and the whole
+            SpGEMM as the path calls it, at the hop matrix's and the
+            triangle path's shapes
+  fill_sweep  both ``bsr_spgemm`` kernels at each tile side 16-128 from
+            0.2% to 100% fill: where the entry kernel stops winning
+            (``ENTRY_MAX_FILL``, by side)
+  clustered_sweep  both kernels on a planted-partition graph that
+            ``fmt="auto"`` stores as BSR, 3-22% full: the crossover on
+            uneven tiles
   graph_*   each graph's build time, sizes and device memory
   serve_*   1024 queries per cell through the server, with the launch
             counts zeroed just before and read just after; queries/s,
@@ -116,6 +128,19 @@ def time_ms(torch, fn, reps=10, warmup=2):
     return float(np.median(times))
 
 
+def wall_ms(torch, fn, reps=3):
+    """Median milliseconds of ``fn()`` by the host clock, the card
+    synchronised before and after: for calls that hold host work."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -154,6 +179,7 @@ def main() -> int:
     def zero_launches():
         for mod in counted.values():
             mod.launches = 0
+        bsr_spgemm.launches_entry = bsr_spgemm.launches_tile = 0
 
     peak = [0]              # device memory peak over the whole script
 
@@ -295,8 +321,16 @@ def main() -> int:
         emit_phase(**row)
         return row
 
-    def spgemm_case(A, B, sr, tag, mask=None, complement=False, timed=False):
-        """Kernel 4 against its plain version on one plan, bit for bit."""
+    def spgemm_case(A, B, sr, tag, mask=None, complement=False, timed=False,
+                    whole=False):
+        """Kernel 4 on one plan: the entry kernel, the tile kernel and the
+        plain version, all three bit for bit (0/1 modes, integer weights);
+        the dispatch's pick. Timed: each kernel on a plan already on the
+        card, the entry-form build, the plan's upload, the dispatch (upload,
+        counts, form, kernel) and the plain version. ``whole``: also the
+        host symbolic plan alone and the whole SpGEMM as the path calls it
+        (``core.bsr.spgemm``: plan, upload, mask tiles, counts, entry form,
+        kernel, output pruning), by the host clock."""
         plan_ = spgemm_symbolic(A, B, mask, complement)
         mb = None
         if mask is not None:
@@ -304,7 +338,28 @@ def main() -> int:
             mb = (mask.blocks[sel.to(DEVICE)] * torch.from_numpy(
                 plan_.mask_sel >= 0).float().to(DEVICE)[:, None, None])
 
-        def kernel():
+        def form():
+            EA = bsr_spgemm.entry_form(A.blocks)
+            return EA, (EA if B.blocks is A.blocks
+                        else bsr_spgemm.entry_form(B.blocks))
+
+        EA, EB = form()
+
+        def upload():
+            return bsr_spgemm.device_plan(plan_, DEVICE)
+
+        dplan = upload()
+
+        def entry():
+            return bsr_spgemm.spgemm_entry(EA, EB, dplan, sr, mask_blocks=mb,
+                                           complement=complement)
+
+        def tile():
+            return bsr_spgemm.spgemm_tile(A.blocks, B.blocks, dplan, sr,
+                                          mask_blocks=mb,
+                                          complement=complement)
+
+        def dispatch():
             return bsr_spgemm.spgemm_blocks(A.blocks, B.blocks, plan_, sr,
                                             mask_blocks=mb,
                                             complement=complement)
@@ -313,40 +368,176 @@ def main() -> int:
             return bsr_spgemm.spgemm_blocks_plain(A.blocks, B.blocks, plan_,
                                                   sr, mb, complement)
 
-        got, want = kernel(), plain()
+        e0 = bsr_spgemm.launches_entry
+        got_d = dispatch()
+        picked = "entry" if bsr_spgemm.launches_entry > e0 else "tile"
+        got_e, got_t, want = entry(), tile(), plain()
         torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"bsr_spgemm == plain ({tag}, {sr.name})")
+        for what, got in (("entry", got_e), ("tile", got_t),
+                          ("dispatch", got_d)):
+            check(torch.equal(got, want),
+                  f"bsr_spgemm {what} == plain ({tag}, {sr.name})")
+        check(torch.equal(got_e, got_t),
+              f"bsr_spgemm entry == tile ({tag}, {sr.name})")
         b = A.block
         tasks = int(plan_.valid.sum())
+        fill = bsr_spgemm.operand_fill(*(
+            [bsr_spgemm.entry_counts(A.blocks)] if B.blocks is A.blocks else
+            [bsr_spgemm.entry_counts(A.blocks),
+             bsr_spgemm.entry_counts(B.blocks)]))
         row = dict(phase="kernel", kernel="bsr_spgemm", shape=tag, card=card,
-                   semiring=sr.name, masked=mask is not None, block=b,
-                   tasks=tasks, output_tiles=plan_.nc, equal=True,
-                   max_abs_err=abs_err(got, want))
-        del got, want
+                   semiring=sr.name, masked=mask is not None,
+                   complement=complement, block=b, tasks=tasks,
+                   output_tiles=plan_.nc, fill=fill, picked=picked,
+                   entries=EA.entries + (0 if EB is EA else EB.entries),
+                   equal=True, entry_equals_tile=True,
+                   max_abs_err=max(abs_err(got_e, want),
+                                   abs_err(got_t, want)))
+        del got_d, got_e, got_t, want
         if timed:
-            # the data's need: the A and B tiles once each, the plan's
-            # selections and run pointer, the output tiles; one multiply-add
-            # (2 fp32 operations) per pair of stored entries A[i,k], B[k,j].
-            # The kernel multiplies whole tiles, b^3 per task:
-            # tile_bound_ms is that work at the fp32 peak.
-            nbytes = ((int(A.valid.sum()) + int(B.valid.sum())) * b * b * 4
-                      + plan_.ntasks * 3 * 4 + (plan_.nc + 1) * 4
-                      + plan_.nc * b * b * 4)
+            # what each kernel must move: its operands once (one operand
+            # when B is A), the plan's selections and run pointer, the mask
+            # tiles, the output tiles. The entry kernel reads the entry
+            # forms (tile base, row_ptr, row, column and value of each
+            # entry, band words), the tile kernel whole tiles. The work: one
+            # multiply-add (2 fp32 operations) per pair of stored entries
+            # A[i,k], B[k,j] (before the mask) for the entry kernel, b^3 a
+            # task for the tile kernel.
+            forms = [EA] if EB is EA else [EA, EB]
+            form_bytes = sum(8 * (f.row_ptr.shape[0] + 1)
+                             + 4 * f.row_ptr.numel() + 6 * f.entries
+                             + 4 * f.bands.numel() for f in forms)
+            stores = [A] if B.blocks is A.blocks else [A, B]
+            tile_bytes = sum(int(X.valid.sum()) for X in stores) * b * b * 4
+            rest = (plan_.ntasks * 3 * 4 + (plan_.nc + 1) * 4
+                    + plan_.nc * b * b * 4 * (1 if mask is None else 2))
             ra, ca, _ = A.to_coo()
             rb, _, _ = B.to_coo()
             k = A.shape[1]
             pairs = int((np.bincount(ca, minlength=k).astype(np.int64)
                          * np.bincount(rb, minlength=k)).sum())
-            bound_ms, bound_by = bound(nbytes, 2 * pairs, FP32_FLOPS_PER_S)
-            row.update(kernel_ms=time_ms(torch, kernel, reps=5),
+            e_bound = bound(form_bytes + rest, 2 * pairs, FP32_FLOPS_PER_S)
+            t_bound = bound(tile_bytes + rest, 2 * tasks * b ** 3,
+                            FP32_FLOPS_PER_S)
+            entry_ms = time_ms(torch, entry)
+            tile_ms = time_ms(torch, tile, reps=5)
+            on_path = e_bound if picked == "entry" else t_bound
+            row.update(kernel_ms=entry_ms if picked == "entry" else tile_ms,
+                       entry_ms=entry_ms, tile_ms=tile_ms,
+                       entry_form_ms=time_ms(torch, form),
+                       plan_upload_ms=time_ms(torch, upload),
+                       dispatch_ms=time_ms(torch, dispatch),
                        plain_ms=time_ms(torch, plain, reps=2, warmup=0),
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       entry_products=pairs,
-                       tile_bound_ms=bound(nbytes, 2 * tasks * b ** 3,
-                                           FP32_FLOPS_PER_S)[0])
+                       bound_ms=on_path[0], bound_by=on_path[1],
+                       entry_bound_ms=e_bound[0], entry_bound_by=e_bound[1],
+                       entry_bytes=form_bytes + rest,
+                       tile_bound_ms=t_bound[0], tile_bound_by=t_bound[1],
+                       tile_bytes=tile_bytes + rest, entry_products=pairs)
+        if whole:
+            row.update(
+                plan_ms=wall_ms(torch, lambda: spgemm_symbolic(
+                    A, B, mask, complement)),
+                spgemm_ms=wall_ms(torch, lambda: bsr_mod.spgemm(
+                    A, B, sr, mask, complement)))
         emit_phase(**row)
         return row
+
+    def crossover(rows):
+        """The geometric middle between the last fill at which the entry
+        kernel beats the tile kernel and the first at which it does not,
+        when the two runs split cleanly; else None."""
+        wins = [o["fill"] for o in rows if o["entry_ms"] < o["tile_ms"]]
+        loses = [o["fill"] for o in rows if o["entry_ms"] >= o["tile_ms"]]
+        if wins and loses and max(wins) < min(loses):
+            return float(np.sqrt(max(wins) * min(loses)))
+        return None
+
+    def sweep_row(row):
+        return {key: row[key] for key in (
+            "shape", "fill", "tasks", "picked", "entry_ms", "tile_ms",
+            "entry_bound_ms", "tile_bound_ms", "entry_form_ms",
+            "dispatch_ms")}
+
+    def fill_sweep():
+        """Both kernels of ``bsr_spgemm`` on A x A (plus_times, integer
+        weights, so all three results agree bit for bit) at each tile side
+        b in {16, 32, 64, 128} over fills from 0.2% to 100%: an 8192 x 8192
+        matrix of 8192 / b block-rows of 8 tiles, entries placed uniformly
+        in each tile. The crossover (where the entry kernel stops beating
+        the tile kernel) at each b is what ``ENTRY_MAX_FILL`` holds."""
+        n, per_row = 8192, 8
+        tile0 = bsr_spgemm.launches_tile
+        for b in (16, 32, 64, 128):
+            nbr = n // b
+            rs = np.random.default_rng(b)
+            br = np.repeat(np.arange(nbr), per_row)
+            bc = np.concatenate([rs.choice(nbr, per_row, replace=False)
+                                 for _ in range(nbr)])
+            order = np.argsort(rs.random((len(br), b * b)), axis=1)
+            out = []
+            for fill in (0.002, 0.01, 0.02, 0.035, 0.05, 0.07, 0.10, 0.15,
+                         0.25, 0.50, 1.0):
+                k = max(1, int(round(fill * b * b)))
+                pos = order[:, :k]
+                r = (br[:, None] * b + pos // b).ravel()
+                c = (bc[:, None] * b + pos % b).ravel()
+                v = rs.integers(1, 4, size=r.size).astype(np.float64)
+                A = BSR.from_coo(r, c, v, (n, n), block=b, device=DEVICE)
+                out.append(sweep_row(spgemm_case(
+                    A, A, S.PLUS_TIMES,
+                    f"fill sweep {fill:g}, {len(br)} {b}-tiles",
+                    timed=True)))
+                del A
+            emit_phase(phase="fill_sweep", card=card, block=b,
+                       tiles=len(br), rows=out, crossover_fill=crossover(out),
+                       entry_max_fill=bsr_spgemm.entry_max_fill(b))
+        tile_launches = bsr_spgemm.launches_tile - tile0
+        check(tile_launches > 0, "fill sweep: the tile kernel launched")
+        return tile_launches
+
+    def clustered_sweep():
+        """Both kernels on a clustered relation that ``fmt="auto"`` stores
+        as BSR: a planted-partition graph (a stochastic block model) of 256
+        communities of 128 consecutive ids, each vertex with ``d_in`` edges
+        into its own community and 2 into a neighbouring one, undirected,
+        integer weights 1-3. Its diagonal tiles are far fuller than the
+        rest, so the dispatch's mean fill is tried on uneven tiles. Two
+        products each: A x A over plus_times (a weighted 2-hop) and the
+        triangle support C<A> = A x A over plus_pair."""
+        blocks, size, d_out = 256, 128, 2
+        n = blocks * size
+        out = []
+        for d_in in (4, 8, 16, 32, 64):
+            rs = np.random.default_rng(d_in)
+            u = np.repeat(np.arange(n), d_in + d_out)
+            hop = np.tile(np.r_[np.zeros(d_in, np.int64),
+                                np.ones(d_out, np.int64)], n)
+            comm = (u // size + hop * rs.choice([-1, 1], size=u.size)) \
+                % blocks
+            v = comm * size + rs.integers(0, size, size=u.size)
+            keep = u != v
+            key = np.unique(np.r_[u[keep] * n + v[keep],
+                                  v[keep] * n + u[keep]])
+            src, dst = key // n, key % n
+            w = (np.minimum(src, dst) * 7 + np.maximum(src, dst)) % 3 + 1
+            g = GraphBuilder(n).add_edges("KNOWS", src, dst, w).build(
+                fmt="auto", device=DEVICE)
+            A = g.relations["KNOWS"].A.store
+            check(g.relations["KNOWS"].A.fmt == "bsr",
+                  f"clustered d_in={d_in}: fmt='auto' stores BSR")
+            tag = f"planted partition d_in={d_in}"
+            out.append(sweep_row(spgemm_case(A, A, S.PLUS_TIMES, tag + ", A x A",
+                                             timed=True)))
+            out.append(sweep_row(spgemm_case(
+                A, A, S.PLUS_PAIR, tag + ", support C<A> = A x A", mask=A,
+                timed=True)))
+            del g, A
+        emit_phase(phase="clustered_sweep", card=card, block=size,
+                   communities=blocks, rows=out,
+                   crossover_fill={
+                       "A x A": crossover(out[0::2]),
+                       "support": crossover(out[1::2])},
+                   entry_max_fill=bsr_spgemm.entry_max_fill(size))
 
     def ewise_case(mode, A, B, op, tag, timed=False):
         """Kernel 5 against its plain version on one plan of ``core.bsr``:
@@ -429,6 +620,8 @@ def main() -> int:
                 mask=BSR.from_coo(r, r, None, (1000, 1000), block=128,
                                   device=DEVICE), complement=True)
     del small_s, small_t, Xs, Ms
+    sweep = fill_sweep()
+    clustered_sweep()
     # bsr_ewise: b in {32, 64, 128}, n % b != 0, block-rows absent on either
     # side, then an empty operand and a side absent everywhere
     modes = [("union", S.ewise("min")), ("intersect", S.ewise("times")),
@@ -692,7 +885,7 @@ def main() -> int:
                memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
     kern["bsr_spgemm"] = spgemm_case(
         AT, AT, S.OR_AND, "scale-14 transpose handle squared (the path's)",
-        timed=True)
+        timed=True, whole=True)
     kern["bsr_spgemm"]["library_ms"], why = library_spgemm(torch, AT)
     emit_phase(phase="library", kernel="bsr_spgemm", card=card,
                call="torch.sparse.mm of two CSR tensors (cuSPARSE SpGEMM)",
@@ -705,7 +898,12 @@ def main() -> int:
     launched = serve(g, [(t12, int(s)) for s in seeds],
                      {"bsr_spgemm": "once", "bsr_mxm": "batches"}, "bsr_hop",
                      bfs_want(g), prime=True)
+    check(bsr_spgemm.launches_entry == 1 and bsr_spgemm.launches_tile == 0,
+          f"bsr_hop: the hop matrix took {bsr_spgemm.launches_entry} entry "
+          f"and {bsr_spgemm.launches_tile} tile launches, not one entry")
     kern["bsr_spgemm"]["launches"] = launched["bsr_spgemm"]
+    spgemm_variants = {"entry": bsr_spgemm.launches_entry,
+                       "tile": bsr_spgemm.launches_tile}
     kern["bsr_mxm"]["launches"] += launched["bsr_mxm"]
     del g, A, AT
     release()
@@ -737,15 +935,33 @@ def main() -> int:
                gb_per_handle=A.store.blocks.numel() * 4 / 1e9,
                handles=4, build_s=build_s, oracle_s=oracle_s,
                memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    # kernel 4 at the triangle path's shape: the support C<A> = A (x) A
+    # over plus_pair, as triangle_count and k-truss round 1 plan it
+    tri_row = spgemm_case(A.store, A.store, S.PLUS_PAIR,
+                          f"scale-{ANALYTICS_SCALE} support C<A> = A x A "
+                          f"(the triangle path's)", mask=A.store, timed=True,
+                          whole=True)
+    tri_row["library_ms"], why = library_spgemm(torch, A.store, masked=True)
+    emit_phase(phase="library", kernel="bsr_spgemm", card=card,
+               shape=tri_row["shape"],
+               call="torch.sparse.mm of two CSR tensors, then * A as COO "
+               "(cuSPARSE SpGEMM, then the mask)",
+               library_ms=tri_row["library_ms"], reason=why)
     analytics = {k: 0 for k in counted}
 
     def read_launches(phase_needs):
         """Launches since the last zero, checked against what the phase
-        needs (kernel -> least count), added to the analytics totals."""
+        needs (kernel -> least count), added to the analytics totals; every
+        SpGEMM of the analytics takes the entry kernel."""
         got = launches_now()
         for k, need in phase_needs.items():
             check(got[k] >= need and got[k] > 0,
                   f"analytics: {k} launched {got[k]} times, needs {need}")
+        check(bsr_spgemm.launches_tile == 0
+              and bsr_spgemm.launches_entry == got["bsr_spgemm"],
+              f"analytics: bsr_spgemm took {bsr_spgemm.launches_tile} tile "
+              f"launches; the entry kernel is the path's")
+        spgemm_variants["entry"] += bsr_spgemm.launches_entry
         for k in analytics:
             analytics[k] += got[k]
         return {k: got[k] for k in phase_needs}
@@ -917,7 +1133,7 @@ def main() -> int:
             "src/repro/kernels/bitadj_mxv.py:69"),
         "bsr_mxm": ("src/repro_torch/kernels/csrc/bsr_mxm.cu",
                     "src/repro/kernels/bsr_mxm.py:112"),
-        "bsr_spgemm": ("src/repro_torch/kernels/csrc/bsr_spgemm.cu",
+        "bsr_spgemm": ("src/repro_torch/kernels/csrc/bsr_spgemm_entry.cu",
                        "src/repro/kernels/bsr_spgemm.py:161"),
         "bsr_ewise": ("src/repro_torch/kernels/csrc/bsr_ewise.cu",
                       "src/repro/kernels/bsr_ewise.py:140"),
@@ -934,6 +1150,35 @@ def main() -> int:
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+        if name == "bsr_spgemm":
+            # each kernel with its own bound; "spgemm_ms" is the whole
+            # SpGEMM as the path calls it (host plan, upload, entry form,
+            # kernel, pruning), the figure to set beside the library's
+            line[-1]["variants"] = {
+                "entry": {"ms": row["entry_ms"],
+                          "bound_ms": row["entry_bound_ms"],
+                          "bound_by": row["entry_bound_by"],
+                          "launches": spgemm_variants["entry"],
+                          "entry_form_ms": row["entry_form_ms"],
+                          "dispatch_ms": row["dispatch_ms"],
+                          "plan_ms": row["plan_ms"],
+                          "spgemm_ms": row["spgemm_ms"],
+                          "triangle_shape": {
+                              "ms": tri_row["entry_ms"],
+                              "bound_ms": tri_row["entry_bound_ms"],
+                              "plan_ms": tri_row["plan_ms"],
+                              "spgemm_ms": tri_row["spgemm_ms"],
+                              "library_ms": tri_row["library_ms"]}},
+                "tile": {"source": "src/repro_torch/kernels/csrc/"
+                                   "bsr_spgemm.cu",
+                         "ms": row["tile_ms"],
+                         "bound_ms": row["tile_bound_ms"],
+                         "bound_by": row["tile_bound_by"],
+                         "launches": spgemm_variants["tile"],
+                         "triangle_shape_ms": tri_row["tile_ms"],
+                         "sweep_launches": sweep}}
+    check(spgemm_variants["entry"] > 0, "the entry kernel of bsr_spgemm "
+          "never launched on the main path")
     check(len(line) == len(sources), "every kernel has a row")
     read_peak()
     emit_phase(phase="memory", card=card,
@@ -1071,16 +1316,26 @@ def library_bsr_mm(torch, store, X):
         return None, f"{type(e).__name__}: {e}"[:300]
 
 
-def library_spgemm(torch, store):
+def library_spgemm(torch, store, masked=False):
     """(ms, reason): ``torch.sparse.mm`` of the handle's CSR form with
-    itself (cuSPARSE SpGEMM), or None and why it did not run."""
+    itself (cuSPARSE SpGEMM), then with ``masked`` the product times the
+    handle as coalesced COO (the <A> mask); or None and why it did not
+    run."""
     try:
         r, c, v = store.to_coo()
         n = store.shape[0]
-        M = torch.sparse_coo_tensor(
+        U = torch.sparse_coo_tensor(
             torch.from_numpy(np.stack([r, c])), torch.from_numpy(v),
-            (n, n)).coalesce().to_sparse_csr().to(DEVICE)
-        ms = time_ms(torch, lambda: torch.sparse.mm(M, M), reps=5)
+            (n, n)).coalesce()
+        M = U.to_sparse_csr().to(DEVICE)
+        U = U.to(DEVICE)
+        if masked:
+            def fn():
+                return torch.sparse.mm(M, M).to_sparse_coo() * U
+        else:
+            def fn():
+                return torch.sparse.mm(M, M)
+        ms = time_ms(torch, fn, reps=5)
         return ms, None
     except Exception as e:         # the yardstick only; no phase depends on it
         return None, f"{type(e).__name__}: {e}"[:300]

@@ -289,6 +289,143 @@ def test_bsr_spgemm_kernel_matches_plain(srname, block, no_tf32):
         _same(got, want, sr)
 
 
+# -- bsr_spgemm's two kernels: entry against plain and against tile ----------
+# The entry kernel sums each output element's terms in the tile kernel's
+# (task, k) order and only skips terms with a zero factor, so the two agree
+# bit for bit in every mode; against the plain version (batched products,
+# then index_add) the 0/1 modes agree bit for bit and plus_times /
+# plus_first within rtol = atol = 1e-5 (fp32 sums of a few hundred terms
+# taken in another order).
+SPGEMM_SR = ["plus_times", "or_and", "plus_pair", "plus_first"]
+
+
+def _spgemm_inputs(block, seed, hub=False):
+    """A (n x k) with an empty band of block-rows, B (k x m), a mask; n, k,
+    m ragged. ``hub``: tile (0, 0) of A gets a full row and a full column,
+    and B's first row of tiles a full row, so a tile row holds b entries
+    and a B row b distinct columns."""
+    rng = np.random.default_rng(seed)
+    n, k, m = 3 * block + 5, 2 * block + 9, 3 * block - 7
+    ra, ca, va = _bsr_coo(rng, n, k, 12 * block, range(block, 2 * block))
+    rb, cb, vb = _bsr_coo(rng, k, m, 10 * block)
+    if hub:
+        full = np.arange(block)
+        ra = np.concatenate([ra, np.full(block, 3), full])
+        ca = np.concatenate([ca, full, np.full(block, 5)])
+        va = np.concatenate([va, rng.uniform(0.5, 2.0, size=2 * block)])
+        rb = np.concatenate([rb, np.full(block, 5)])
+        cb = np.concatenate([cb, full])
+        vb = np.concatenate([vb, rng.uniform(0.5, 2.0, size=block)])
+    rm, cm, _ = _bsr_coo(rng, n, m, 60 * block)
+    A = BSR.from_coo(ra, ca, va, (n, k), block=block, device="cuda")
+    B = BSR.from_coo(rb, cb, vb, (k, m), block=block, device="cuda")
+    Mk = BSR.from_coo(rm, cm, None, (n, m), block=block, device="cuda")
+    return A, B, Mk
+
+
+def _mask_tiles(plan, mask):
+    if mask is None:
+        return None
+    sel = torch.from_numpy(np.clip(plan.mask_sel, 0, None)).long()
+    return mask.blocks[sel.cuda()] * torch.from_numpy(
+        plan.mask_sel >= 0).float().cuda()[:, None, None]
+
+
+@pytest.mark.parametrize("srname", SPGEMM_SR)
+@pytest.mark.parametrize("mask_mode", ["none", "mask", "complement"])
+@pytest.mark.parametrize("block,hub", [(16, False), (32, False), (64, True),
+                                       (128, True)])
+def test_bsr_spgemm_entry_matches_plain_and_tile(block, hub, mask_mode,
+                                                 srname, no_tf32):
+    A, B, Mk = _spgemm_inputs(block, block + len(srname), hub)
+    mask = None if mask_mode == "none" else Mk
+    comp = mask_mode == "complement"
+    # pad_to=64: the plan ends in padding tasks (valid == 0)
+    plan = bsr_mod.spgemm_symbolic(A, B, mask, comp, pad_to=64)
+    assert (plan.valid == 0).any()
+    mb = _mask_tiles(plan, mask)
+    sr = S.get(srname)
+    EA, EB = bsr_spgemm.entry_form(A.blocks), bsr_spgemm.entry_form(B.blocks)
+    dp = bsr_spgemm.device_plan(plan, "cuda")
+    before = (bsr_spgemm.launches, bsr_spgemm.launches_entry)
+    got = bsr_spgemm.spgemm_entry(EA, EB, dp, sr, mask_blocks=mb,
+                                  complement=comp)
+    again = bsr_spgemm.spgemm_entry(EA, EB, dp, sr, mask_blocks=mb,
+                                    complement=comp)
+    tile = bsr_spgemm.spgemm_tile(A.blocks, B.blocks, dp, sr,
+                                  mask_blocks=mb, complement=comp)
+    torch.cuda.synchronize()
+    assert (bsr_spgemm.launches, bsr_spgemm.launches_entry) == (
+        before[0] + 3, before[1] + 2)
+    want = bsr_spgemm.spgemm_blocks_plain(A.blocks, B.blocks, plan, sr, mb,
+                                          comp)
+    _same(got, want, sr)
+    assert torch.equal(got, tile)
+    assert torch.equal(got, again)
+
+
+def test_bsr_spgemm_entry_form_on_cuda_equals_cpu():
+    A, _, _ = _spgemm_inputs(128, 3, hub=True)
+    fc = bsr_spgemm.entry_form(A.blocks)
+    fh = bsr_spgemm.entry_form(A.blocks.cpu())
+    for f in ("base", "row_ptr", "rows", "cols", "vals", "bands"):
+        assert torch.equal(getattr(fc, f).cpu(), getattr(fh, f)), f
+    assert fc.entries == fh.entries
+
+
+@pytest.mark.parametrize("limit,variant", [(0.0, "tile"), (1.01, "entry")])
+def test_bsr_spgemm_dispatch_picks_by_fill(limit, variant, monkeypatch):
+    """Under the crossover (``entry_max_fill``) the entry kernel runs, at or
+    above it the tile kernel; A x A builds one entry form; both give the
+    plain answer."""
+    monkeypatch.setattr(bsr_spgemm, "entry_max_fill", lambda b: limit)
+    A, B, Mk = _spgemm_inputs(32, 11)
+    rng = np.random.default_rng(11)
+    r, c, v = _bsr_coo(rng, 200, 200, 900, range(64, 96))
+    Q = BSR.from_coo(r, c, v, (200, 200), block=32, device="cuda")
+    for X, Y, M in ((A, B, Mk), (Q, Q, None)):
+        plan = bsr_mod.spgemm_symbolic(X, Y, M)
+        mb = _mask_tiles(plan, M)
+        e0, t0 = bsr_spgemm.launches_entry, bsr_spgemm.launches_tile
+        got = bsr_spgemm.spgemm_blocks(X.blocks, Y.blocks, plan, S.PLUS_PAIR,
+                                       mask_blocks=mb)
+        torch.cuda.synchronize()
+        took = {"entry": bsr_spgemm.launches_entry - e0,
+                "tile": bsr_spgemm.launches_tile - t0}
+        assert took == {"entry": int(variant == "entry"),
+                        "tile": int(variant == "tile")}
+        want = bsr_spgemm.spgemm_blocks_plain(X.blocks, Y.blocks, plan,
+                                              S.PLUS_PAIR, mb)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["entry", "tile"])
+def test_bsr_spgemm_kernel_failure_raises(variant, monkeypatch):
+    """A variant that fails to launch or to load raises KernelError; the
+    other variant and the plain version are never taken."""
+    from repro_torch.kernels import KernelError, build
+    A, B, _ = _spgemm_inputs(32, 13)
+    plan = bsr_mod.spgemm_symbolic(A, B)
+    attr = "_bound_entry" if variant == "entry" else "_bound"
+    monkeypatch.setattr(bsr_spgemm, "entry_max_fill",
+                        lambda b: 1.01 if variant == "entry" else 0.0)
+    before = (bsr_spgemm.launches, bsr_spgemm.launches_entry,
+              bsr_spgemm.launches_tile)
+    monkeypatch.setattr(bsr_spgemm, attr, lambda *a: 700)  # cudaError 700
+    with pytest.raises(KernelError):
+        bsr_spgemm.spgemm_blocks(A.blocks, B.blocks, plan, S.OR_AND)
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bsr_spgemm, attr, None)
+    with pytest.raises(KernelError):
+        bsr_spgemm.spgemm_blocks(A.blocks, B.blocks, plan, S.OR_AND)
+    assert (bsr_spgemm.launches, bsr_spgemm.launches_entry,
+            bsr_spgemm.launches_tile) == before
+
+
 BSR_SLICE = [
     "MATCH (a)-[:KNOWS*1..2]->(b) WHERE id(a) IN [1, 7, 33] "
     "RETURN a, count(DISTINCT b)",
@@ -341,6 +478,7 @@ def test_bsr_server_reports_a_kernel_that_cannot_load(monkeypatch):
     monkeypatch.setattr(build, "load", no_library)
     monkeypatch.setattr(bsr_mxm, "_bound", None)
     monkeypatch.setattr(bsr_spgemm, "_bound", None)
+    monkeypatch.setattr(bsr_spgemm, "_bound_entry", None)
     g = datagen.rmat_graph(9, fmt="bsr", device="cuda")
     tmpl = ["MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)",
             "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(b)"]
