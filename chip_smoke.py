@@ -12,25 +12,29 @@ at scale 16 (the float hop loop, kernel ``bsr_mxm``) and BSR at scale 14
 Graph500 R-MAT scale-15 BSR graph through ``repro_torch.algorithms``:
 ``triangle_count``, ``ktruss(k=4)``, ``similarity_matrix`` and
 ``similarity`` (kernels ``bsr_spgemm``, ``bsr_ewise``, ``bsr_mxm``).
-``bsr_spgemm`` has two kernels: the path takes the entry kernel
-(sparse tiles), the tile kernel runs in the fill sweep and beside it.
+Each BSR kernel has two variants: an entry kernel (stored entries) and a
+tile kernel (whole tiles), picked by the operands' fill against a
+crossover table measured by this script's fill sweeps; Graph500 tiles take
+the entry kernels, the sweeps and full tiles the tile kernels.
 Phases, each printing one JSON line:
 
   device    the card's name and power limit (nvidia-smi)
   build     every CUDA kernel built from ``src/repro_torch/kernels/csrc``
   kernel    each kernel against its plain PyTorch version at a ragged
-            small shape and at the path's own shapes, with its time, the
-            plain version's time, the card's bound and, where one PyTorch
-            call computes the same product, that call's time; for
-            ``bsr_spgemm`` both kernels (each with its own bound), the
+            small shape and at the path's own shapes (the two variants of
+            a BSR kernel also against each other), with the dispatch's
+            pick, each kernel's time, the plain versions' times, the
+            card's bound and, where one PyTorch call computes the same
+            product, that call's time; for ``bsr_spgemm`` also the
             entry-form build, the dispatch, the host plan and the whole
-            SpGEMM as the path calls it, at the hop matrix's and the
-            triangle path's shapes
-  fill_sweep  both ``bsr_spgemm`` kernels at each tile side 16-128 from
-            0.2% to 100% fill: where the entry kernel stops winning
-            (``ENTRY_MAX_FILL``, by side)
-  clustered_sweep  both kernels on a planted-partition graph that
-            ``fmt="auto"`` stores as BSR, 3-22% full: the crossover on
+            SpGEMM as the path calls it, for ``bsr_ewise`` the payload
+            forms' build and the whole op as the path calls it
+  fill_sweep  both variants of ``bsr_spgemm``, ``bsr_mxm`` and
+            ``bsr_ewise`` at each tile side 16-128 from 0.2% to 100% fill:
+            where the entry kernel stops winning (each kernel's crossover
+            table, by side)
+  clustered_sweep  the same on a planted-partition graph that
+            ``fmt="auto"`` stores as BSR, 3-22% full: the crossovers on
             uneven tiles
   graph_*   each graph's build time, sizes and device memory
   serve_*   1024 queries per cell through the server, with the launch
@@ -83,6 +87,14 @@ DEVICE = "cuda"                # where every graph and operand lives
 ANALYTICS_SCALE = 15           # the HPEC Graph Challenge's graph500 inputs
                                # start at 18; cut to what one run can peel
 SIM_SOURCES = 64
+# the fill sweeps: an n x n matrix at each tile side and fill, frontiers
+# of SWEEP_F columns; the planted-partition graph's communities and degrees
+SWEEP_N = 8192
+SWEEP_F = 512
+SWEEP_FILLS = (0.002, 0.01, 0.02, 0.035, 0.05, 0.07, 0.10, 0.15, 0.25,
+               0.50, 1.0)
+CLUSTER_COMMUNITIES = 256
+CLUSTER_D_IN = (4, 8, 16, 32, 64)
 
 
 def check(ok, what):
@@ -176,10 +188,18 @@ def main() -> int:
     def launches_now():
         return {k: mod.launches for k, mod in counted.items()}
 
+    variants = (bsr_mxm, bsr_spgemm, bsr_ewise)   # entry and tile kernels
+
     def zero_launches():
         for mod in counted.values():
             mod.launches = 0
-        bsr_spgemm.launches_entry = bsr_spgemm.launches_tile = 0
+        for mod in variants:
+            mod.launches_entry = mod.launches_tile = 0
+
+    def variant_launches():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}_{v}":
+                getattr(mod, f"launches_{v}")
+                for mod in variants for v in ("entry", "tile")}
 
     peak = [0]              # device memory peak over the whole script
 
@@ -281,43 +301,93 @@ def main() -> int:
         return row
 
     def bsr_mxm_case(store, X, sr, tag, mask=None, complement=False,
-                     timed=False):
-        """Kernel 3 against its plain version on one input, bit for bit."""
-        def kernel():
-            return bsr_mxm.bsr_mxm(store, X, sr, mask=mask,
-                                   complement=complement)
+                     timed=False, sweep=False):
+        """Kernel 3 on one input: the entry kernel against the tile kernel
+        and each against its plain version, bit for bit (integer weights
+        and frontiers keep every sum exact), and the dispatch's pick.
+        Timed: both kernels, both plain versions, each one's bound and
+        cuSPARSE SpMM (``torch.sparse.mm``) on the handle's CSR. ``sweep``:
+        the two kernels alone, checked against each other."""
+        csr = store.row_csr()
 
-        def plain():
+        def entry():
+            return bsr_mxm.bsr_mxm_entry(csr, X, sr, mask=mask,
+                                         complement=complement)
+
+        def tile():
+            return bsr_mxm.bsr_mxm_tile(store, X, sr, mask=mask,
+                                        complement=complement)
+
+        def plain_entry():
+            return bsr_mxm.mask_epilogue(
+                bsr_mxm.bsr_mxm_entry_plain(csr, X, sr), mask, complement,
+                sr.identity)
+
+        def plain_tile():
             return bsr_mxm.mask_epilogue(ops.bsr_mxm_plain(store, X, sr),
                                          mask, complement, sr.identity)
 
-        got, want = kernel(), plain()
+        got_d = bsr_mxm.bsr_mxm(store, X, sr, mask=mask,
+                                complement=complement)
+        picked = bsr_mxm.picked
+        got_e, got_t = entry(), tile()
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"bsr_mxm == plain ({tag}, {sr.name})")
+        check(torch.equal(got_e, got_t),
+              f"bsr_mxm entry == tile ({tag}, {sr.name})")
+        check(torch.equal(got_d, got_e),
+              f"bsr_mxm dispatch ({picked}) == kernels ({tag}, {sr.name})")
+        err = 0.0
+        if not sweep:
+            for what, want in (("entry", plain_entry()),
+                               ("tile", plain_tile())):
+                torch.cuda.synchronize()
+                check(torch.equal(got_e, want),
+                      f"bsr_mxm {what} == plain ({tag}, {sr.name})")
+                err = max(err, abs_err(got_e, want))
+        del got_d, got_t
         n, m = store.shape
         F = X.shape[1]
+        b = store.block
         row = dict(phase="kernel", kernel="bsr_mxm", shape=tag, card=card,
                    semiring=sr.name, masked=mask is not None,
-                   complement=complement, n=n, m=m, F=F, block=store.block,
-                   equal=True, max_abs_err=abs_err(got, want))
+                   complement=complement, n=n, m=m, F=F, block=b,
+                   fill=store.fill_ratio, picked=picked, equal=True,
+                   entry_equals_tile=True, max_abs_err=err)
+        if timed or sweep:
+            # what each kernel must move: the frontier, the mask and the
+            # output once, and its form of A: the row CSR (row pointer,
+            # row order, a column and a value an entry) or the stored
+            # tiles. The data's work: one multiply-add (2 fp32 operations)
+            # per stored entry and frontier column; the tile kernel does
+            # b * b a tile per column (tile_work_bound_ms).
+            io = m * F * 4 + n * F * 4 * (2 if mask is not None else 1)
+            e_bytes = 8 * (n + 1) + 4 * n + 8 * csr.entries + io
+            t_bytes = store.tiles_held * b * b * 4 + io
+            work = 2 * csr.entries * F
+            e_bound = bound(e_bytes, work, FP32_FLOPS_PER_S)
+            t_bound = bound(t_bytes, work, FP32_FLOPS_PER_S)
+            slow = sweep or store.tiles_held * b * b * F > 1e11
+            row.update(
+                entry_ms=time_ms(torch, entry),
+                tile_ms=time_ms(torch, tile, reps=3 if slow else 10,
+                                warmup=1 if slow else 2),
+                entry_bound_ms=e_bound[0], entry_bound_by=e_bound[1],
+                entry_bytes=e_bytes, tile_bound_ms=t_bound[0],
+                tile_bound_by=t_bound[1], tile_bytes=t_bytes,
+                tile_work_bound_ms=bound(
+                    t_bytes, 2 * store.tiles_held * b * b * F,
+                    FP32_FLOPS_PER_S)[0],
+                entries=csr.entries, valid_tiles=store.tiles_held)
         if timed:
-            tiles = int(store.valid.sum())
-            b = store.block
-            # the data's need: each stored tile read once (the tiles are
-            # the only record of where the entries are), the frontier, the
-            # mask and the output; one multiply-add (2 fp32 operations) per
-            # stored entry and frontier column. The kernel multiplies whole
-            # tiles: tile_bound_ms is that work at the fp32 peak.
-            nbytes = (tiles * b * b * 4 + m * F * 4 + n * F * 4
-                      * (2 if mask is not None else 1))
-            bound_ms, bound_by = bound(nbytes, 2 * store.nnz * F,
-                                       FP32_FLOPS_PER_S)
-            row.update(kernel_ms=time_ms(torch, kernel),
-                       plain_ms=time_ms(torch, plain, reps=3, warmup=1),
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       entries=store.nnz, valid_tiles=tiles,
-                       tile_bound_ms=bound(nbytes, 2 * tiles * b * b * F,
-                                           FP32_FLOPS_PER_S)[0])
+            row.update(
+                plain_ms=time_ms(torch, plain_entry, reps=3, warmup=1),
+                plain_tile_ms=time_ms(torch, plain_tile, reps=2, warmup=0))
+            row["library_ms"], row["library_reason"] = library_spmm(
+                torch, csr, store.shape, X)
+            on_path = "entry" if picked == "entry" else "tile"
+            row.update(kernel_ms=row[f"{on_path}_ms"],
+                       bound_ms=row[f"{on_path}_bound_ms"],
+                       bound_by=row[f"{on_path}_bound_by"])
         emit_phase(**row)
         return row
 
@@ -326,8 +396,9 @@ def main() -> int:
         """Kernel 4 on one plan: the entry kernel, the tile kernel and the
         plain version, all three bit for bit (0/1 modes, integer weights);
         the dispatch's pick. Timed: each kernel on a plan already on the
-        card, the entry-form build, the plan's upload, the dispatch (upload,
-        counts, form, kernel) and the plain version. ``whole``: also the
+        card, the entry-form build, the plan's upload, the dispatch on the
+        two handles as the path calls it (upload, the handles' cached
+        forms, kernel) and the plain version. ``whole``: also the
         host symbolic plan alone and the whole SpGEMM as the path calls it
         (``core.bsr.spgemm``: plan, upload, mask tiles, counts, entry form,
         kernel, output pruning), by the host clock."""
@@ -360,17 +431,15 @@ def main() -> int:
                                           complement=complement)
 
         def dispatch():
-            return bsr_spgemm.spgemm_blocks(A.blocks, B.blocks, plan_, sr,
-                                            mask_blocks=mb,
+            return bsr_spgemm.spgemm_blocks(A, B, plan_, sr, mask_blocks=mb,
                                             complement=complement)
 
         def plain():
             return bsr_spgemm.spgemm_blocks_plain(A.blocks, B.blocks, plan_,
                                                   sr, mb, complement)
 
-        e0 = bsr_spgemm.launches_entry
         got_d = dispatch()
-        picked = "entry" if bsr_spgemm.launches_entry > e0 else "tile"
+        picked = bsr_spgemm.picked
         got_e, got_t, want = entry(), tile(), plain()
         torch.cuda.synchronize()
         for what, got in (("entry", got_e), ("tile", got_t),
@@ -454,19 +523,51 @@ def main() -> int:
 
     def sweep_row(row):
         return {key: row[key] for key in (
-            "shape", "fill", "tasks", "picked", "entry_ms", "tile_ms",
-            "entry_bound_ms", "tile_bound_ms", "entry_form_ms",
-            "dispatch_ms")}
+            "shape", "fill", "picked", "entry_ms", "tile_ms",
+            "entry_bound_ms", "tile_bound_ms", "tasks", "entry_form_ms",
+            "dispatch_ms", "mode") if key in row}
+
+    def frontier(n, F, seed):
+        """(n, F) integer frontier values 0-2, 30% nonzero, on the card."""
+        rs = np.random.default_rng(seed)
+        x = np.where(rs.random((n, F)) < 0.3, rs.integers(1, 3, (n, F)), 0)
+        return torch.from_numpy(x.astype(np.float32)).to(DEVICE)
+
+    def variant_rows(A, A2, X, tag):
+        """The sweeps' mxm and ewise rows of one operand: A x X over
+        plus_times, A .* A2 over times and A >= 2 (A2 holds A's tiles)."""
+        return (sweep_row(bsr_mxm_case(A, X, S.PLUS_TIMES, tag,
+                                       sweep=True)),
+                [sweep_row(ewise_case("intersect", A, A2, S.ewise("times"),
+                                      tag, sweep=True)),
+                 sweep_row(ewise_case("select", A, None, S.ewise("ge", 2.0),
+                                      tag, sweep=True))])
+
+    def emit_sweeps(phase, rows, tables, **kw):
+        """One line per kernel: its rows, the crossover (ewise: of each
+        mode) and the dispatch's current limit."""
+        for kernel, out in rows.items():
+            if kernel == "bsr_ewise":
+                cross = {m: crossover([o for o in out if o["mode"] == m])
+                         for m in ("intersect", "select")}
+            else:
+                cross = crossover(out)
+            emit_phase(phase=phase, card=card, kernel=kernel, rows=out,
+                       crossover_fill=cross, entry_max_fill=tables[kernel],
+                       **kw)
 
     def fill_sweep():
-        """Both kernels of ``bsr_spgemm`` on A x A (plus_times, integer
-        weights, so all three results agree bit for bit) at each tile side
-        b in {16, 32, 64, 128} over fills from 0.2% to 100%: an 8192 x 8192
-        matrix of 8192 / b block-rows of 8 tiles, entries placed uniformly
-        in each tile. The crossover (where the entry kernel stops beating
-        the tile kernel) at each b is what ``ENTRY_MAX_FILL`` holds."""
-        n, per_row = 8192, 8
-        tile0 = bsr_spgemm.launches_tile
+        """Both variants of ``bsr_spgemm`` (A x A, plus_times), ``bsr_mxm``
+        (A x X, plus_times, F = 512) and ``bsr_ewise`` (A .* A2, A >= 2) on
+        integer weights, so every result agrees bit for bit, at each tile
+        side b in {16, 32, 64, 128} over fills from 0.2% to 100%: an
+        8192 x 8192 matrix of 8192 / b block-rows of 8 tiles, entries
+        placed uniformly in each tile (A2: the same tiles, other places).
+        The crossover (where the entry kernel stops beating the tile
+        kernel) at each b is what each crossover table holds."""
+        n, per_row = SWEEP_N, 8
+        before = variant_launches()
+        X = frontier(n, SWEEP_F, n)
         for b in (16, 32, 64, 128):
             nbr = n // b
             rs = np.random.default_rng(b)
@@ -474,40 +575,52 @@ def main() -> int:
             bc = np.concatenate([rs.choice(nbr, per_row, replace=False)
                                  for _ in range(nbr)])
             order = np.argsort(rs.random((len(br), b * b)), axis=1)
-            out = []
-            for fill in (0.002, 0.01, 0.02, 0.035, 0.05, 0.07, 0.10, 0.15,
-                         0.25, 0.50, 1.0):
+            order2 = np.argsort(rs.random((len(br), b * b)), axis=1)
+            rows = {"bsr_spgemm": [], "bsr_mxm": [], "bsr_ewise": []}
+            for fill in SWEEP_FILLS:
                 k = max(1, int(round(fill * b * b)))
-                pos = order[:, :k]
-                r = (br[:, None] * b + pos // b).ravel()
-                c = (bc[:, None] * b + pos % b).ravel()
-                v = rs.integers(1, 4, size=r.size).astype(np.float64)
-                A = BSR.from_coo(r, c, v, (n, n), block=b, device=DEVICE)
-                out.append(sweep_row(spgemm_case(
-                    A, A, S.PLUS_TIMES,
-                    f"fill sweep {fill:g}, {len(br)} {b}-tiles",
-                    timed=True)))
-                del A
-            emit_phase(phase="fill_sweep", card=card, block=b,
-                       tiles=len(br), rows=out, crossover_fill=crossover(out),
-                       entry_max_fill=bsr_spgemm.entry_max_fill(b))
-        tile_launches = bsr_spgemm.launches_tile - tile0
-        check(tile_launches > 0, "fill sweep: the tile kernel launched")
-        return tile_launches
+                ops_ = []
+                for o in (order, order2):
+                    pos = o[:, :k]
+                    r = (br[:, None] * b + pos // b).ravel()
+                    c = (bc[:, None] * b + pos % b).ravel()
+                    v = rs.integers(1, 4, size=r.size).astype(np.float64)
+                    ops_.append(BSR.from_coo(r, c, v, (n, n), block=b,
+                                             device=DEVICE))
+                A, A2 = ops_
+                tag = f"fill sweep {fill:g}, {len(br)} {b}-tiles"
+                rows["bsr_spgemm"].append(sweep_row(spgemm_case(
+                    A, A, S.PLUS_TIMES, tag, timed=True)))
+                mx, ew = variant_rows(A, A2, X, tag)
+                rows["bsr_mxm"].append(mx)
+                rows["bsr_ewise"] += ew
+                del A, A2, ops_
+            emit_sweeps("fill_sweep", rows, {
+                "bsr_spgemm": bsr_spgemm.entry_max_fill(b),
+                "bsr_mxm": bsr_mxm.entry_max_fill(b),
+                "bsr_ewise": bsr_ewise.entry_max_fill(b)}, block=b,
+                tiles=len(br))
+        after = variant_launches()
+        swept = {k: after[k] - before[k] for k in after}
+        for k, v in swept.items():
+            check(v > 0, f"fill sweep: {k} launched")
+        return swept
 
     def clustered_sweep():
-        """Both kernels on a clustered relation that ``fmt="auto"`` stores
-        as BSR: a planted-partition graph (a stochastic block model) of 256
-        communities of 128 consecutive ids, each vertex with ``d_in`` edges
-        into its own community and 2 into a neighbouring one, undirected,
-        integer weights 1-3. Its diagonal tiles are far fuller than the
-        rest, so the dispatch's mean fill is tried on uneven tiles. Two
-        products each: A x A over plus_times (a weighted 2-hop) and the
-        triangle support C<A> = A x A over plus_pair."""
-        blocks, size, d_out = 256, 128, 2
+        """Both variants of each BSR kernel on a clustered relation that
+        ``fmt="auto"`` stores as BSR: a planted-partition graph (a
+        stochastic block model) of 256 communities of 128 consecutive ids,
+        each vertex with ``d_in`` edges into its own community and 2 into
+        a neighbouring one, undirected, integer weights 1-3. Its diagonal
+        tiles are far fuller than the rest, so the dispatch's mean fill is
+        tried on uneven tiles. SpGEMM: A x A over plus_times (a weighted
+        2-hop) and the triangle support C<A> = A x A over plus_pair;
+        ``bsr_mxm``: A x X, F = 512; ``bsr_ewise``: A .* A, A >= 2."""
+        blocks, size, d_out = CLUSTER_COMMUNITIES, 128, 2
         n = blocks * size
-        out = []
-        for d_in in (4, 8, 16, 32, 64):
+        X = frontier(n, SWEEP_F, n)
+        rows = {"bsr_spgemm": [], "bsr_mxm": [], "bsr_ewise": []}
+        for d_in in CLUSTER_D_IN:
             rs = np.random.default_rng(d_in)
             u = np.repeat(np.arange(n), d_in + d_out)
             hop = np.tile(np.r_[np.zeros(d_in, np.int64),
@@ -526,63 +639,159 @@ def main() -> int:
             check(g.relations["KNOWS"].A.fmt == "bsr",
                   f"clustered d_in={d_in}: fmt='auto' stores BSR")
             tag = f"planted partition d_in={d_in}"
-            out.append(sweep_row(spgemm_case(A, A, S.PLUS_TIMES, tag + ", A x A",
-                                             timed=True)))
-            out.append(sweep_row(spgemm_case(
+            rows["bsr_spgemm"].append(sweep_row(spgemm_case(
+                A, A, S.PLUS_TIMES, tag + ", A x A", timed=True)))
+            rows["bsr_spgemm"].append(sweep_row(spgemm_case(
                 A, A, S.PLUS_PAIR, tag + ", support C<A> = A x A", mask=A,
                 timed=True)))
+            mx, ew = variant_rows(A, A, X, tag)
+            rows["bsr_mxm"].append(mx)
+            rows["bsr_ewise"] += ew
             del g, A
-        emit_phase(phase="clustered_sweep", card=card, block=size,
-                   communities=blocks, rows=out,
+        sp = rows.pop("bsr_spgemm")
+        emit_phase(phase="clustered_sweep", card=card, kernel="bsr_spgemm",
+                   block=size, communities=blocks, rows=sp,
                    crossover_fill={
-                       "A x A": crossover(out[0::2]),
-                       "support": crossover(out[1::2])},
+                       "A x A": crossover(sp[0::2]),
+                       "support": crossover(sp[1::2])},
                    entry_max_fill=bsr_spgemm.entry_max_fill(size))
+        emit_sweeps("clustered_sweep", rows, {
+            "bsr_mxm": bsr_mxm.entry_max_fill(size),
+            "bsr_ewise": bsr_ewise.entry_max_fill(size)}, block=size,
+            communities=blocks)
 
-    def ewise_case(mode, A, B, op, tag, timed=False):
-        """Kernel 5 against its plain version on one plan of ``core.bsr``:
-        the payloads, then the pruned tiles and nnz, bit for bit."""
+    def fresh_handle(X):
+        """The same handle without its cached forms."""
+        return BSR(X.shape, X.block, X.blocks, X.block_rows, X.block_cols,
+                   X.first, X.last, X.valid, X.row_ptr, X.nnz, X.emask)
+
+    def ewise_case(mode, A, B, op, tag, timed=False, sweep=False):
+        """Kernel 5 on one plan of ``core.bsr``: the entry kernel's slots
+        against its plain version's, the tile kernel's tiles against its
+        plain version's, and the two routes' handles (tile lists, nnz, the
+        entry route's lazily built tiles) against each other, bit for bit;
+        the dispatch's pick. Timed: each kernel alone (selectors on the
+        card, outputs allocated: ``bsr_ewise.launch`` of a prepared call),
+        both plain versions, each bound, the payload form's build, and by
+        the host clock the whole op as the path calls it (host plan,
+        selector upload, slot sizing, kernel, output scan and prune) and
+        its steps. ``sweep``: the two kernels and their handles only."""
         sel_a, sel_b, rows, cols, Bs = bsr_mod.ewise_plan(mode, A, B)
+        FA = A.payload_form()
+        FB = None if Bs is None else Bs.payload_form()
         Bb = None if Bs is None else Bs.blocks
 
-        def kernel():
+        def entry():
+            return bsr_ewise.map_entries(FA, sel_a, FB, sel_b, mode, op)
+
+        def tile():
             return bsr_ewise.map_tiles(A.blocks, sel_a, Bb, sel_b, mode, op)
 
-        def plain():
-            return bsr_ewise.map_tiles_plain(A.blocks, sel_a, Bb, sel_b, mode,
-                                             op)
+        def plain_entry():
+            return bsr_ewise.map_entries_plain(FA, sel_a, FB, sel_b, mode,
+                                               op)
 
-        got, want = kernel(), plain()
+        def plain_tile():
+            return bsr_ewise.map_tiles_plain(A.blocks, sel_a, Bb, sel_b,
+                                             mode, op)
+
+        picked = bsr_ewise.pick(A, Bs)
+        got_e, got_t = entry(), tile()
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"bsr_ewise == plain ({tag}, {mode})")
-        G = BSR.from_blocks_device(rows, cols, got, A.shape, A.block)
-        W = BSR.from_blocks_device(rows, cols, want, A.shape, A.block)
+        if not sweep:
+            want_e, want_t = plain_entry(), plain_tile()
+            kept = got_e[3].view(torch.int32) != 0
+            check(torch.equal(got_e[0], want_e[0]) and torch.equal(
+                got_e[3].view(torch.int32), want_e[3].view(torch.int32))
+                and all(torch.equal(g[kept], w[kept])
+                        for g, w in zip(got_e[1:3], want_e[1:3])),
+                f"bsr_ewise entry == plain ({tag}, {mode})")
+            check(torch.equal(got_t, want_t),
+                  f"bsr_ewise tile == plain ({tag}, {mode})")
+            del want_e, want_t
+        G = BSR.from_entry_slots(rows, cols, *got_e, A.shape, A.block)
+        W = BSR.from_blocks_device(rows, cols, got_t, A.shape, A.block)
         check(G.nnz == W.nnz and all(
             torch.equal(getattr(G, f), getattr(W, f)) for f in (
-                "blocks", "block_rows", "block_cols", "valid", "row_ptr")),
-            f"bsr_ewise pruned tiles and nnz == plain ({tag}, {mode})")
+                "block_rows", "block_cols", "first", "last", "valid",
+                "row_ptr")) and torch.equal(
+                    G.blocks.view(torch.int32), W.blocks.view(torch.int32)),
+            f"bsr_ewise entry route == tile route: tiles, tile list, nnz "
+            f"({tag}, {mode})")
         b, T = A.block, len(sel_a)
+        slots = int(got_e[0][-1])
         row = dict(phase="kernel", kernel="bsr_ewise", shape=tag, card=card,
                    mode=mode, op=None if op is None else str(op),
                    block=b, n=A.shape[0], m=A.shape[1], tiles=T,
+                   fill=bsr_mod.stored_fill(*([A] if Bs is None or Bs is A
+                                               else [A, Bs])),
+                   picked=picked,
                    absent_a=int((sel_a < 0).sum()),
                    absent_b=None if sel_b is None else int((sel_b < 0).sum()),
-                   tiles_out=int(G.valid.sum()), nnz_out=G.nnz, equal=True,
-                   max_abs_err=abs_err(got, want))
-        del got, want, W
+                   entries_a=FA.entries,
+                   entries_b=None if FB is None else FB.entries, slots=slots,
+                   tiles_out=int(W.valid.sum()), nnz_out=W.nnz, equal=True,
+                   entry_equals_tile=True, max_abs_err=0.0)
+        del got_e, got_t, G, W
+        if timed or sweep:
+            # what each kernel must move: the selectors and, for the entry
+            # kernel, each present operand tile's entries (row, column,
+            # value: 6 bytes) with its two 8-byte bounds, the slot pointer
+            # and every slot written once (6 bytes); for the tile kernel
+            # each present operand tile and each output tile (4 bytes an
+            # element). One fp32 operation per slot, or per output element.
+            sels = [sel_a] + ([] if sel_b is None else [sel_b])
+            forms = [FA] + ([] if FB is None else [FB])
+            present = [int((x >= 0).sum()) for x in sels]
+            ent = sum(int(f.base.diff().cpu().numpy()[x[x >= 0]].sum())
+                      for f, x in zip(forms, sels))
+            e_bytes = (6 * ent + 16 * sum(present) + 4 * T * len(sels)
+                       + 8 * (T + 1) + 6 * slots)
+            t_bytes = ((sum(present) + T) * b * b * 4 + 4 * T * len(sels))
+            e_bound = bound(e_bytes, slots, FP32_FLOPS_PER_S)
+            t_bound = bound(t_bytes, T * b * b, FP32_FLOPS_PER_S)
+            ecall = bsr_ewise.entry_call(FA, sel_a, FB, sel_b, mode, op)
+            tcall = bsr_ewise.tile_call(A.blocks, sel_a, Bb, sel_b, mode, op)
+            row.update(entry_ms=time_ms(torch,
+                                        lambda: bsr_ewise.launch(ecall)),
+                       tile_ms=time_ms(torch,
+                                       lambda: bsr_ewise.launch(tcall)),
+                       entry_bound_ms=e_bound[0], entry_bound_by=e_bound[1],
+                       entry_bytes=e_bytes, tile_bound_ms=t_bound[0],
+                       tile_bound_by=t_bound[1], tile_bytes=t_bytes)
+            del ecall, tcall
         if timed:
-            # the data's need: each present operand tile read once, the
-            # selectors, each output tile written once; one fp32 operation
-            # per output entry
-            present = int((sel_a >= 0).sum()) + (
-                0 if sel_b is None else int((sel_b >= 0).sum()))
-            nbytes = ((present + T) * b * b * 4
-                      + T * 4 * (1 if sel_b is None else 2))
-            bound_ms, bound_by = bound(nbytes, T * b * b, FP32_FLOPS_PER_S)
-            row.update(kernel_ms=time_ms(torch, kernel),
-                       plain_ms=time_ms(torch, plain, reps=3, warmup=1),
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       library_ms=None)
+            fresh = A.blocks
+            slots_ = entry()
+            row.update(
+                plan_ms=wall_ms(torch, lambda: bsr_mod.ewise_plan(mode, A,
+                                                                  B)),
+                entry_wrapper_ms=wall_ms(torch, entry),
+                tile_wrapper_ms=wall_ms(torch, tile),
+                assemble_ms=wall_ms(torch, lambda: BSR.from_entry_slots(
+                    rows, cols, *slots_, A.shape, A.block)),
+                plain_ms=time_ms(torch, plain_entry, reps=3, warmup=1),
+                plain_tile_ms=time_ms(torch, plain_tile, reps=3, warmup=1),
+                payload_form_ms=time_ms(torch, lambda: bsr_mod.entry_form(
+                    fresh, signed_zeros=True)),
+                whole_op_ms=wall_ms(torch, lambda: bsr_mod._ewise(
+                    mode, A, B, op), reps=5),
+                # as the path meets a fresh operand: its payload form built
+                whole_op_fresh_ms=wall_ms(torch, lambda: bsr_mod._ewise(
+                    mode, fresh_handle(A), None if B is None
+                    else fresh_handle(B), op), reps=3),
+                library_ms=None)
+            saved = bsr_ewise.entry_max_fill
+            bsr_ewise.entry_max_fill = lambda b_: 0.0   # the tile route
+            try:
+                row["whole_op_tile_ms"] = wall_ms(
+                    torch, lambda: bsr_mod._ewise(mode, A, B, op), reps=5)
+            finally:
+                bsr_ewise.entry_max_fill = saved
+            on_path = "entry" if picked == "entry" else "tile"
+            row.update(kernel_ms=row[f"{on_path}_ms"],
+                       bound_ms=row[f"{on_path}_bound_ms"],
+                       bound_by=row[f"{on_path}_bound_by"])
         emit_phase(**row)
         return row
 
@@ -622,6 +831,7 @@ def main() -> int:
     del small_s, small_t, Xs, Ms
     sweep = fill_sweep()
     clustered_sweep()
+    path = {k: 0 for k in variant_launches()}
     # bsr_ewise: b in {32, 64, 128}, n % b != 0, block-rows absent on either
     # side, then an empty operand and a side absent everywhere
     modes = [("union", S.ewise("min")), ("intersect", S.ewise("times")),
@@ -679,7 +889,7 @@ def main() -> int:
         qids = [srv.submit(t, seeds=[s]) for t, s in texts]
         out = srv.flush()
         dt = time.perf_counter() - t0
-        launches = launches_now()
+        launches = {**launches_now(), **variant_launches()}
         errors = [out[q].error for q in qids if out[q].error is not None]
         check(not errors, f"{tag}: query errors {errors[:3]}")
         counts = np.array([out[q].scalar() for q in qids])
@@ -723,6 +933,10 @@ def main() -> int:
                    p99_ms=float(np.percentile(lat, 99)),
                    batches=batches, pack_ratio=srv.stats["pack_ratio"],
                    launches={k: launches[k] for k in needs},
+                   variants={k: v for k, v in launches.items()
+                             if k.endswith(("_entry", "_tile"))},
+                   picked={"bsr_mxm": bsr_mxm.picked,
+                           "bsr_spgemm": bsr_spgemm.picked},
                    checked=CHECKED, reference_s=ref_s,
                    count_mean=float(counts.mean()), prime_s=prime_s,
                    setup_peak_gb=setup_peak / 1e9)
@@ -846,12 +1060,21 @@ def main() -> int:
                           complement=True, timed=True),
              bsr_mxm_case(AT, X1, S.PLUS_TIMES, "scale-16 transpose handle "
                           "F=512, hop 2 (the path's)", timed=True)]
-    kern["bsr_mxm"] = dict(rows3[0], max_abs_err=max(
-        r_["max_abs_err"] for r_ in rows3))
-    kern["bsr_mxm"]["library_ms"], why = library_bsr_mm(torch, AT, X1)
+    for r_ in rows3:
+        check(r_["picked"] == "entry", f"bsr_mxm at scale 16 picked "
+              f"{r_['picked']}, not the entry kernel")
+    mxm_row = dict(rows3[0], max_abs_err=max(
+        r_["max_abs_err"] for r_ in rows3), plus_times=rows3[1])
     emit_phase(phase="library", kernel="bsr_mxm", card=card,
-               call="torch.sparse_bsr_tensor @ dense frontier, F=512",
-               library_ms=kern["bsr_mxm"]["library_ms"], reason=why)
+               call="torch.sparse.mm of the handle's CSR and the dense "
+               "frontier, F=512 (cuSPARSE SpMM)",
+               library_ms=mxm_row["library_ms"],
+               reason=mxm_row["library_reason"])
+    mxm_row["bsr_library_ms"], why = library_bsr_mm(torch, AT, X1)
+    emit_phase(phase="library", kernel="bsr_mxm", card=card,
+               call="torch.sparse_bsr_tensor @ dense frontier, F=512 "
+               "(PyTorch's BSR kernel: the tile kernel's whole-tile work)",
+               library_ms=mxm_row["bsr_library_ms"], reason=why)
     del B0, X1, visited
     src, dst, n = rmat_edges(16)
     texts = [(t12 if i % 2 == 0 else w12, int(s))
@@ -859,8 +1082,12 @@ def main() -> int:
     bfs = bfs_want(g)
     walks = walk_counts(src, dst, n)
     want = (lambda t, s: bfs(t, s) if "DISTINCT" in t else int(walks[s]))
-    kern["bsr_mxm"]["launches"] = serve(
-        g, texts, {"bsr_mxm": "hops"}, "bsr", want)["bsr_mxm"]
+    launched = serve(g, texts, {"bsr_mxm": "hops"}, "bsr", want)
+    check(launched["bsr_mxm_entry"] == launched["bsr_mxm"],
+          f"bsr s16: bsr_mxm took {launched['bsr_mxm_tile']} tile "
+          f"launches; the entry kernel is the path's")
+    for k in path:
+        path[k] += launched[k]
     breakdown(g, t12, seeds[::2], "bsr")
     del g, A, AT, ctx, bfs, want
     release()
@@ -893,18 +1120,32 @@ def main() -> int:
     out_deg = bsr_out_degree(torch, A.store)
     seeds = np.random.default_rng(14).choice(
         np.nonzero(out_deg >= 1)[0], QUERIES, replace=False)
+    B0 = ctx.seed_frontier(seeds[:MAX_WIDTH])
+    hop_row = bsr_mxm_case(P.store, B0, S.OR_AND, "scale-14 hop matrix "
+                           "F=512 (the path's)", mask=(B0 > 0).to(
+                               torch.float32), complement=True, timed=True)
+    emit_phase(phase="library", kernel="bsr_mxm", card=card,
+               shape=hop_row["shape"],
+               call="torch.sparse.mm of the hop matrix's CSR and the seed "
+               "frontier, F=512 (cuSPARSE SpMM)",
+               library_ms=hop_row["library_ms"],
+               reason=hop_row["library_reason"])
+    del B0
     breakdown(g, t12, seeds, "bsr_hop", ctx)       # its hop matrix is built
     del P, ctx
     launched = serve(g, [(t12, int(s)) for s in seeds],
                      {"bsr_spgemm": "once", "bsr_mxm": "batches"}, "bsr_hop",
                      bfs_want(g), prime=True)
-    check(bsr_spgemm.launches_entry == 1 and bsr_spgemm.launches_tile == 0,
-          f"bsr_hop: the hop matrix took {bsr_spgemm.launches_entry} entry "
-          f"and {bsr_spgemm.launches_tile} tile launches, not one entry")
-    kern["bsr_spgemm"]["launches"] = launched["bsr_spgemm"]
-    spgemm_variants = {"entry": bsr_spgemm.launches_entry,
-                       "tile": bsr_spgemm.launches_tile}
-    kern["bsr_mxm"]["launches"] += launched["bsr_mxm"]
+    check(launched["bsr_spgemm_entry"] == 1
+          and launched["bsr_spgemm_tile"] == 0,
+          f"bsr_hop: the hop matrix took {launched['bsr_spgemm_entry']} "
+          f"entry and {launched['bsr_spgemm_tile']} tile launches, not one "
+          f"entry")
+    hop_variant = "entry" if hop_row["picked"] == "entry" else "tile"
+    check(launched["bsr_mxm_" + hop_variant] == launched["bsr_mxm"],
+          "bsr_hop: bsr_mxm took the variant the hop matrix's fill picks")
+    for k in path:
+        path[k] += launched[k]
     del g, A, AT
     release()
 
@@ -947,23 +1188,24 @@ def main() -> int:
                call="torch.sparse.mm of two CSR tensors, then * A as COO "
                "(cuSPARSE SpGEMM, then the mask)",
                library_ms=tri_row["library_ms"], reason=why)
-    analytics = {k: 0 for k in counted}
 
     def read_launches(phase_needs):
         """Launches since the last zero, checked against what the phase
-        needs (kernel -> least count), added to the analytics totals; every
-        SpGEMM of the analytics takes the entry kernel."""
+        needs (kernel -> least count), added to the path's totals by
+        variant; every BSR kernel of the analytics takes its entry kernel
+        (Graph500 tiles)."""
         got = launches_now()
         for k, need in phase_needs.items():
             check(got[k] >= need and got[k] > 0,
                   f"analytics: {k} launched {got[k]} times, needs {need}")
-        check(bsr_spgemm.launches_tile == 0
-              and bsr_spgemm.launches_entry == got["bsr_spgemm"],
-              f"analytics: bsr_spgemm took {bsr_spgemm.launches_tile} tile "
-              f"launches; the entry kernel is the path's")
-        spgemm_variants["entry"] += bsr_spgemm.launches_entry
-        for k in analytics:
-            analytics[k] += got[k]
+        var = variant_launches()
+        for mod in variants:
+            k = mod.__name__.rsplit(".", 1)[-1]
+            check(var[f"{k}_tile"] == 0 and var[f"{k}_entry"] == got[k],
+                  f"analytics: {k} took {var[k + '_tile']} tile launches; "
+                  f"the entry kernel is the path's")
+        for k in path:
+            path[k] += var[k]
         return {k: got[k] for k in phase_needs}
 
     # triangles
@@ -983,11 +1225,13 @@ def main() -> int:
     # the two kernels and the select (synchronised)
     # each hook keeps its step's seconds and a count read off its result
     # (the plan's tasks, the select's surviving entries), not the result
-    steps = {"spgemm_symbolic": [], "spgemm_blocks": [], "map_tiles": [],
+    steps = {"spgemm_symbolic": [], "spgemm_blocks": [], "map_entries": [],
              "select_stored": []}
+    # the select's kernel is the entry kernel at Graph500 fill
+    # (read_launches checks it)
     hooks = [(bsr_mod, "spgemm_symbolic", lambda p_: int(p_.valid.sum())),
              (bsr_spgemm, "spgemm_blocks", lambda _: None),
-             (bsr_ewise, "map_tiles", lambda _: None),
+             (bsr_ewise, "map_entries", lambda _: None),
              (bsr_mod, "select_stored", lambda sel: sel.nnz)]
     saved = [getattr(mod, name) for mod, name, _ in hooks]
 
@@ -1021,7 +1265,7 @@ def main() -> int:
                       select_ms=1e3 * te, surviving=kept)
                  for (ts, tasks), (tk, _), (te, _), (_, kept) in zip(
                      *(steps[k] for k in ("spgemm_symbolic", "spgemm_blocks",
-                                          "map_tiles", "select_stored")))]
+                                          "map_entries", "select_stored")))]
     del steps
     r_, c_, v_ = T.store.to_coo()
     got_key = r_ * n + c_
@@ -1096,10 +1340,14 @@ def main() -> int:
                                                    1.0)).astype(np.float32),
                          C1.shape, block=C1.block, device=DEVICE)
     tag15 = f"scale-{ANALYTICS_SCALE} support (the path's)"
-    ewise_case("select", C1, None, S.ewise("ge", 2.0), tag15, timed=True)
+    sel_row = ewise_case("select", C1, None, S.ewise("ge", 2.0), tag15,
+                         timed=True)
     ewise_case("apply", C1, None, S.ewise("mul", 0.5), tag15, timed=True)
-    kern["bsr_ewise"] = ewise_case("intersect", C1, recip, S.ewise("times"),
-                                   tag15 + " x reciprocals", timed=True)
+    ew_row = ewise_case("intersect", C1, recip, S.ewise("times"),
+                        tag15 + " x reciprocals", timed=True)
+    for r_ in (sel_row, ew_row):
+        check(r_["picked"] == "entry", f"bsr_ewise at the scale-15 support "
+              f"picked {r_['picked']}, not the entry kernel")
     union_row = ewise_case("union", C1, A.store, S.ewise("plus"),
                            tag15 + " + A", timed=True)
     for mode in ("mask", "mask_c"):
@@ -1110,76 +1358,90 @@ def main() -> int:
             ("union", C1, A.store,
              "(A + B).coalesce() of coalesced CUDA COO tensors")):
         ms, why = library_ewise(torch, mode, X, Y)
-        (kern["bsr_ewise"] if mode == "intersect" else union_row)[
-            "library_ms"] = ms
+        (ew_row if mode == "intersect" else union_row)["library_ms"] = ms
         emit_phase(phase="library", kernel="bsr_ewise", card=card, mode=mode,
                    call=call, library_ms=ms, reason=why)
     emit_phase(phase="library", kernel="bsr_ewise", card=card,
                mode="apply, select, mask, mask_c", library_ms=None,
                reason="no single PyTorch call maps or filters the stored "
                "values of a sparse tensor by a predicate or a mask pattern")
-    kern["bsr_ewise"]["launches"] = analytics["bsr_ewise"]
-    kern["bsr_spgemm"]["launches"] += analytics["bsr_spgemm"]
-    kern["bsr_mxm"]["launches"] += analytics["bsr_mxm"]
     del g, rel, A, T, C1, recip, Asp, sup, truss_want
     release()
 
     # -- the kernels line, the card, the result --------------------------------
-    sources = {
-        "ell_mxv_packed": ("src/repro_torch/kernels/csrc/ell_mxv_packed.cu",
+    csrc = "src/repro_torch/kernels/csrc/"
+    rows_by = {
+        # name: (row, variant, source, the TPU kernel it replaces)
+        "ell_mxv_packed": (kern["ell_mxv_packed"], None, "ell_mxv_packed.cu",
                            "src/repro/kernels/bitmap_mxv.py:63"),
-        "bitadj_mxv_packed": (
-            "src/repro_torch/kernels/csrc/bitadj_mxv_packed.cu",
-            "src/repro/kernels/bitadj_mxv.py:69"),
-        "bsr_mxm": ("src/repro_torch/kernels/csrc/bsr_mxm.cu",
-                    "src/repro/kernels/bsr_mxm.py:112"),
-        "bsr_spgemm": ("src/repro_torch/kernels/csrc/bsr_spgemm_entry.cu",
-                       "src/repro/kernels/bsr_spgemm.py:161"),
-        "bsr_ewise": ("src/repro_torch/kernels/csrc/bsr_ewise.cu",
-                      "src/repro/kernels/bsr_ewise.py:140"),
+        "bitadj_mxv_packed": (kern["bitadj_mxv_packed"], None,
+                              "bitadj_mxv_packed.cu",
+                              "src/repro/kernels/bitadj_mxv.py:69"),
+        "bsr_mxm_entry": (mxm_row, "entry", "bsr_mxm_entry.cu",
+                          "src/repro/kernels/bsr_mxm.py:112"),
+        "bsr_mxm_tile": (mxm_row, "tile", "bsr_mxm.cu",
+                         "src/repro/kernels/bsr_mxm.py:112"),
+        "bsr_spgemm_entry": (kern["bsr_spgemm"], "entry",
+                             "bsr_spgemm_entry.cu",
+                             "src/repro/kernels/bsr_spgemm.py:161"),
+        "bsr_spgemm_tile": (kern["bsr_spgemm"], "tile", "bsr_spgemm.cu",
+                            "src/repro/kernels/bsr_spgemm.py:161"),
+        "bsr_ewise_entry": (ew_row, "entry", "bsr_ewise_entry.cu",
+                            "src/repro/kernels/bsr_ewise.py:140"),
+        "bsr_ewise_tile": (ew_row, "tile", "bsr_ewise.cu",
+                           "src/repro/kernels/bsr_ewise.py:140"),
     }
+    # the yardsticks: cuSPARSE SpMM for the entry kernel of bsr_mxm,
+    # PyTorch's BSR product (the same whole-tile work) for its tile kernel
+    library = {"bsr_mxm_tile": mxm_row["bsr_library_ms"]}
     line = []
-    for name, row in kern.items():
-        check(row["launches"] > 0, f"{name} never launched on the main path")
-        line.append({"name": name, "route": "cuda",
-                     "source": sources[name][0],
-                     "replaces": sources[name][1],
-                     "launches": row["launches"],
-                     "max_abs_err": row["max_abs_err"],
-                     "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                     "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"],
-                     "library_ms": row["library_ms"]})
-        if name == "bsr_spgemm":
-            # each kernel with its own bound; "spgemm_ms" is the whole
-            # SpGEMM as the path calls it (host plan, upload, entry form,
-            # kernel, pruning), the figure to set beside the library's
-            line[-1]["variants"] = {
-                "entry": {"ms": row["entry_ms"],
-                          "bound_ms": row["entry_bound_ms"],
-                          "bound_by": row["entry_bound_by"],
-                          "launches": spgemm_variants["entry"],
-                          "entry_form_ms": row["entry_form_ms"],
-                          "dispatch_ms": row["dispatch_ms"],
-                          "plan_ms": row["plan_ms"],
-                          "spgemm_ms": row["spgemm_ms"],
-                          "triangle_shape": {
-                              "ms": tri_row["entry_ms"],
-                              "bound_ms": tri_row["entry_bound_ms"],
-                              "plan_ms": tri_row["plan_ms"],
-                              "spgemm_ms": tri_row["spgemm_ms"],
-                              "library_ms": tri_row["library_ms"]}},
-                "tile": {"source": "src/repro_torch/kernels/csrc/"
-                                   "bsr_spgemm.cu",
-                         "ms": row["tile_ms"],
-                         "bound_ms": row["tile_bound_ms"],
-                         "bound_by": row["tile_bound_by"],
-                         "launches": spgemm_variants["tile"],
-                         "triangle_shape_ms": tri_row["tile_ms"],
-                         "sweep_launches": sweep}}
-    check(spgemm_variants["entry"] > 0, "the entry kernel of bsr_spgemm "
-          "never launched on the main path")
-    check(len(line) == len(sources), "every kernel has a row")
+    for name, (row, var, src, replaces) in rows_by.items():
+        launched = row["launches"] if var is None else path[name]
+        entry = {"name": name, "route": "cuda", "source": csrc + src,
+                 "replaces": replaces, "launches": launched,
+                 "max_abs_err": row["max_abs_err"]}
+        if var is None:
+            entry.update(ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+                         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                         library_ms=row["library_ms"])
+        else:
+            entry.update(
+                ms=row[f"{var}_ms"],
+                plain_ms=row.get("plain_tile_ms", row["plain_ms"])
+                if var == "tile" else row["plain_ms"],
+                bound_ms=row[f"{var}_bound_ms"],
+                bound_by=row[f"{var}_bound_by"],
+                library_ms=library.get(name, row["library_ms"]),
+                picked_on_path=row["picked"],
+                sweep_launches=sweep[name])
+        line.append(entry)
+    # the other path shapes of each BSR kernel, beside its row
+    line[2]["plus_times"] = {k: mxm_row["plus_times"][k] for k in (
+        "entry_ms", "tile_ms", "entry_bound_ms", "library_ms")}
+    line[2]["hop_matrix"] = {k: hop_row[k] for k in (
+        "picked", "fill", "entry_ms", "tile_ms", "entry_bound_ms",
+        "tile_bound_ms", "library_ms")}
+    sp = kern["bsr_spgemm"]
+    line[4].update(entry_form_ms=sp["entry_form_ms"],
+                   dispatch_ms=sp["dispatch_ms"], plan_ms=sp["plan_ms"],
+                   spgemm_ms=sp["spgemm_ms"], triangle_shape={
+                       "ms": tri_row["entry_ms"],
+                       "bound_ms": tri_row["entry_bound_ms"],
+                       "plan_ms": tri_row["plan_ms"],
+                       "spgemm_ms": tri_row["spgemm_ms"],
+                       "library_ms": tri_row["library_ms"]})
+    line[5]["triangle_shape_ms"] = tri_row["tile_ms"]
+    line[6].update(whole_op_ms=ew_row["whole_op_ms"],
+                   payload_form_ms=ew_row["payload_form_ms"],
+                   select={k: sel_row[k] for k in (
+                       "entry_ms", "tile_ms", "entry_bound_ms",
+                       "tile_bound_ms", "whole_op_ms", "plain_ms")})
+    for entry in line:
+        path_kernel = not entry["name"].endswith("_tile")
+        check(entry["launches"] > 0 or not path_kernel,
+              f"{entry['name']} never launched on the main path")
+        check(entry.get("sweep_launches", 1) > 0,
+              f"{entry['name']} never launched in the fill sweeps")
     read_peak()
     emit_phase(phase="memory", card=card,
                max_memory_allocated_gb=peak[0] / 1e9)
@@ -1310,8 +1572,22 @@ def library_bsr_mm(torch, store, X):
         M = torch.sparse_bsr_tensor(
             crow, store.block_cols[v].long(), store.blocks[v],
             size=(store.nbrows * b, store.nbcols * b))
-        ms = time_ms(torch, lambda: M @ Xp, reps=5)
+        ms = time_ms(torch, lambda: M @ Xp, reps=2, warmup=1)
         return ms, None
+    except Exception as e:         # the yardstick only; no phase depends on it
+        return None, f"{type(e).__name__}: {e}"[:300]
+
+
+def library_spmm(torch, csr, shape, X):
+    """(ms, reason): ``torch.sparse.mm`` of the handle's row CSR, already
+    on the card, and the dense frontier (cuSPARSE SpMM: the same gathers
+    and multiply-adds as the entry kernel, over plus_times), or None and
+    why it did not run. A yardstick only: the port never calls it."""
+    try:
+        M = torch.sparse_csr_tensor(csr.indptr, csr.cols.long(), csr.vals,
+                                    size=tuple(shape))
+        Xf = X.to(torch.float32).contiguous()
+        return time_ms(torch, lambda: torch.sparse.mm(M, Xf)), None
     except Exception as e:         # the yardstick only; no phase depends on it
         return None, f"{type(e).__name__}: {e}"[:300]
 

@@ -20,10 +20,20 @@ vectorised scatter straight into the final tile order (the JAX build loops
 over tiles on the host), and ``transpose`` transposes each tile on the
 device (the JAX build goes through a dense n x n on the host).
 
+The handle also caches, built once on the device by torch glue, its
+stored entries in two forms: ``entry_form()`` (and ``payload_form()``,
+which also keeps the tiles' -0.0s), a CSR per tile, which SpGEMM's and the
+element-wise family's entry kernels read; and ``row_csr()``, one CSR over
+the rows, which ``bsr_mxm``'s entry kernel reads. A handle that an
+entry-level op produced holds entries only and builds its tiles on the
+first ``.blocks`` read (``tile_builds()`` counts these builds); its tile
+list, ``nnz`` and built tiles equal the JAX build's.
+
 The element-wise family (``ewise_add`` ... ``extract_ranges``) plans its
 output tiles on the host from the valid-tile key lists (the JAX package's
 code) and runs the numeric phase on the device through
-``kernels.bsr_ewise.map_tiles``; the payloads never leave the device.
+``kernels.bsr_ewise`` (entries or whole tiles, by the operands' fill); the
+payloads never leave the device.
 """
 from __future__ import annotations
 
@@ -38,33 +48,282 @@ from repro_torch.core import xfer
 # entries per device chunk of the structure scan in to_coo, so no single
 # boolean scan exceeds 2^30 entries
 _SCAN_ENTRIES = 1 << 30
+# tile elements per chunk of the entry-form build (a 64 MB bool scan and at
+# most 512 MB of int64 positions at a time)
+_FORM_ENTRIES = 1 << 26
+BANDS = 32            # row bands per tile in EntryForm.bands
+
+_tile_builds = [0]
+
+
+def tile_builds() -> int:
+    """Tiles materialised from entries so far: each first ``.blocks`` read
+    of a handle that an entry-level op produced. The counterpart of the JAX
+    package's ``densify_calls()``; tests read deltas."""
+    return _tile_builds[0]
+
+
+# ---------------------------------------------------------------------------
+# stored entries: a per-tile CSR (EntryForm) and a global row CSR (RowCSR)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class EntryForm:
+    """The entries of a stack of (b x b) tiles as one CSR per tile. Tile
+    t's row i holds entries ``base[t] + row_ptr[t, i]`` up to
+    ``base[t] + row_ptr[t, i + 1]``, sorted by column. ``entry_form``
+    drops zeros: they add nothing in any dot mode (for finite inputs). A
+    payload form (``signed_zeros``) also keeps the tiles' -0.0s."""
+    block: int
+    base: torch.Tensor     # (nnzb + 1,) int64 first entry of each tile
+    row_ptr: torch.Tensor  # (nnzb, b + 1) int32 offsets inside the tile
+    rows: torch.Tensor     # (E,) uint8 row in the tile
+    cols: torch.Tensor     # (E,) uint8 column in the tile
+    vals: torch.Tensor     # (E,) float32
+    bands: torch.Tensor    # (nnzb,) int32 bit q: band q of rows holds one
+    entries: int           # E
+
+    def tile_of(self) -> torch.Tensor:
+        """(E,) int64: the tile of each entry."""
+        n = self.base.shape[0] - 1
+        return torch.repeat_interleave(
+            torch.arange(n, device=self.base.device), self.base.diff(),
+            output_size=self.entries)
+
+
+def _chunk_tiles(b: int) -> int:
+    return max(1, _FORM_ENTRIES // (b * b))
+
+
+def _held(chunk: torch.Tensor, signed_zeros: bool) -> torch.Tensor:
+    """The elements an entry form holds: nonzero, or (``signed_zeros``)
+    every element whose bits are not +0.0."""
+    return chunk.view(torch.int32) != 0 if signed_zeros else chunk != 0
+
+
+def entry_counts(blocks: torch.Tensor,
+                 signed_zeros: bool = False) -> torch.Tensor:
+    """(nnzb, b) int32: the entries of each tile row, chunked."""
+    nnzb, b = int(blocks.shape[0]), int(blocks.shape[1])
+    if nnzb == 0:
+        return torch.zeros((0, b), dtype=torch.int32, device=blocks.device)
+    step = _chunk_tiles(b)
+    return torch.cat([_held(blocks[lo:lo + step].to(torch.float32),
+                            signed_zeros).sum(dim=2, dtype=torch.int32)
+                      for lo in range(0, nnzb, step)])
+
+
+def _occupancy(counts: torch.Tensor):
+    """(entries, tiles holding any) of one operand's row counts."""
+    per_tile = counts.sum(dim=1, dtype=torch.int64)
+    return int(per_tile.sum()), int((per_tile > 0).sum())
+
+
+def operand_fill(*counts: torch.Tensor) -> float:
+    """The fill a dispatch reads: stored entries over the capacity of the
+    tiles that hold any, over the distinct operands' row counts (for one
+    BSR of distinct nonzero entries, ``BSR.fill_ratio``)."""
+    b = int(counts[0].shape[1])
+    occ = [_occupancy(c) for c in counts]
+    return (sum(e for e, _ in occ)
+            / max(sum(t for _, t in occ) * b * b, 1))
+
+
+def _bands(counts: torch.Tensor) -> torch.Tensor:
+    """(nnzb,) int32: bit q set iff band q of a tile's rows holds one."""
+    nnzb, b = counts.shape
+    dev = counts.device
+    band_of = torch.arange(b, device=dev) * BANDS // b
+    per_band = torch.zeros((nnzb, BANDS), dtype=torch.int32, device=dev)
+    per_band.index_add_(1, band_of, counts)
+    word = ((per_band > 0).to(torch.int64)
+            << torch.arange(BANDS, device=dev)).sum(dim=1)
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def _form(counts, rows, cols, vals, b: int) -> EntryForm:
+    """An EntryForm from its row counts and its entries, already grouped
+    by tile and row-major inside each tile."""
+    nnzb = int(counts.shape[0])
+    dev = counts.device
+    row_ptr = torch.zeros((nnzb, b + 1), dtype=torch.int32, device=dev)
+    row_ptr[:, 1:] = torch.cumsum(counts, dim=1, dtype=torch.int32)
+    base = torch.zeros(nnzb + 1, dtype=torch.int64, device=dev)
+    base[1:] = torch.cumsum(row_ptr[:, -1].to(torch.int64), dim=0)
+    return EntryForm(block=b, base=base, row_ptr=row_ptr, rows=rows,
+                     cols=cols, vals=vals, bands=_bands(counts),
+                     entries=int(vals.shape[0]))
+
+
+def form_of_entries(tile, rows, cols, vals, ntiles: int, b: int) -> EntryForm:
+    """An EntryForm of ``ntiles`` tiles from entries grouped by tile (in
+    tile order) and row-major inside each tile; ``tile`` (E,) int64."""
+    counts = torch.zeros(ntiles * b, dtype=torch.int32, device=vals.device)
+    counts.index_add_(0, tile * b + rows.long(),
+                      torch.ones_like(tile, dtype=torch.int32))
+    return _form(counts.view(ntiles, b), rows, cols, vals, b)
+
+
+def entry_form(blocks: torch.Tensor, counts: Optional[torch.Tensor] = None,
+               signed_zeros: bool = False) -> EntryForm:
+    """The per-tile CSR of ``blocks`` (nnzb, b, b), on their device: plain
+    torch glue, a chunked ``nonzero`` in row-major order, which groups the
+    entries by tile and row and sorts each row by column. ``counts``, when
+    given, are ``entry_counts(blocks, signed_zeros)``."""
+    nnzb, b = int(blocks.shape[0]), int(blocks.shape[1])
+    if b > 256:
+        raise ValueError(f"entry_form: tile side {b} > 256 does not fit "
+                         f"uint8 coordinates")
+    dev = blocks.device
+    if counts is None:
+        counts = entry_counts(blocks, signed_zeros)
+    per_tile = counts.sum(dim=1, dtype=torch.int64)
+    base_h = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum(per_tile, dim=0)]).cpu().numpy()
+    E = int(base_h[-1])
+    rows = torch.empty(E, dtype=torch.uint8, device=dev)
+    cols = torch.empty(E, dtype=torch.uint8, device=dev)
+    vals = torch.empty(E, dtype=torch.float32, device=dev)
+    flat = blocks.reshape(nnzb, b * b)
+    step = _chunk_tiles(b)
+    for lo in range(0, nnzb, step):
+        hi = min(lo + step, nnzb)
+        s, e = int(base_h[lo]), int(base_h[hi])
+        if s == e:
+            continue
+        chunk = flat[lo:hi].to(torch.float32)
+        t, p = torch.nonzero(_held(chunk, signed_zeros), as_tuple=True)
+        rows[s:e] = torch.div(p, b, rounding_mode="floor").to(torch.uint8)
+        cols[s:e] = (p % b).to(torch.uint8)
+        vals[s:e] = chunk[t, p]
+    return _form(counts, rows, cols, vals, b)
+
+
+def stored_fill(*handles: "BSR") -> float:
+    """The fill the dispatches read: stored entries over the capacity of
+    the valid tiles, over the distinct handles given (for one handle,
+    ``fill_ratio``)."""
+    b = handles[0].block
+    return (sum(X.nnz for X in handles)
+            / max(sum(X.tiles_held for X in handles) * b * b, 1))
+
+
+def drop_zeros(form: EntryForm) -> EntryForm:
+    """``form`` without its zero-valued entries (the -0.0s a payload form
+    keeps); the same object when it holds none."""
+    keep = form.vals != 0
+    if bool(keep.all()):
+        return form
+    nnzb = form.base.shape[0] - 1
+    return form_of_entries(form.tile_of()[keep], form.rows[keep],
+                           form.cols[keep], form.vals[keep], nnzb,
+                           form.block)
 
 
 @dataclasses.dataclass
+class RowCSR:
+    """A handle's stored entries as one CSR over its rows: row i holds
+    entries ``indptr[i]`` up to ``indptr[i + 1]``, in ascending column
+    order, which is the tile kernel's (tile, column) summation order
+    because a block-row's tiles are sorted by block column. The emask's
+    explicit zeros are kept (a 0-weight edge under min_plus / max_plus).
+    ``order`` lists the rows longest first, the entry kernel's schedule."""
+    indptr: torch.Tensor   # (n + 1,) int64
+    cols: torch.Tensor     # (E,) int32 global column
+    vals: torch.Tensor     # (E,) float32
+    order: torch.Tensor    # (n,) int32 rows by descending length
+    _at_least: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def entries(self) -> int:
+        return int(self.cols.shape[0])
+
+    def rows_at_least(self, k: int) -> int:
+        """The rows holding k entries or more: the first ones of
+        ``order``. Counted once per k."""
+        if k not in self._at_least:
+            self._at_least[k] = int((self.indptr.diff() >= k).sum())
+        return self._at_least[k]
+
+
+def _row_csr(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             shape) -> RowCSR:
+    """A RowCSR from (row, col, value) entries in any order (int64)."""
+    n, m = shape
+    key, perm = torch.sort(rows * m + cols)
+    lengths = torch.bincount(rows, minlength=n)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    indptr[1:] = torch.cumsum(lengths, dim=0)
+    order = torch.argsort(lengths, descending=True, stable=True)
+    return RowCSR(indptr=indptr, cols=(key % m).to(torch.int32),
+                  vals=vals[perm].to(torch.float32),
+                  order=order.to(torch.int32))
+
+
 class BSR:
-    shape: Tuple[int, int]
-    block: int
-    blocks: torch.Tensor      # (nnzb, block, block) float32 tile payloads
-    block_rows: torch.Tensor  # (nnzb,) int32 block-row of each tile
-    block_cols: torch.Tensor  # (nnzb,) int32 block-col of each tile
-    first: torch.Tensor       # (nnzb,) int32 1 iff first tile of its row
-    last: torch.Tensor        # (nnzb,) int32 1 iff last tile of its row
-    valid: torch.Tensor       # (nnzb,) int32 0 for padding tiles
-    row_ptr: torch.Tensor     # (nbrows+1,) int32 pointers over tiles
-    nnz: int                  # element count (pre-blocking)
-    # per-entry structure (nnzb, block, block) bool, present only when the
-    # build saw explicit 0.0 entries, which the payload cannot tell from
-    # absent; the tropical (bcast) product, to_coo and transpose read it
-    emask: Optional[torch.Tensor] = None
+    """A block-sparse matrix handle (module docstring). Handles are
+    immutable: the forms they cache (``payload_form``, ``entry_form``,
+    ``row_csr``) assume it.
+
+    A handle that an entry-level op produced holds its entries (a payload
+    EntryForm over its tile list) and builds its ``(nnzb, b, b)`` tiles
+    only when ``.blocks`` is read (``tile_builds()`` counts these builds);
+    every other handle holds tiles."""
+
+    def __init__(self, shape, block: int, blocks: Optional[torch.Tensor],
+                 block_rows: torch.Tensor, block_cols: torch.Tensor,
+                 first: torch.Tensor, last: torch.Tensor,
+                 valid: torch.Tensor, row_ptr: torch.Tensor, nnz: int,
+                 emask: Optional[torch.Tensor] = None,
+                 entries: Optional[EntryForm] = None):
+        if blocks is None and entries is None:
+            raise ValueError("BSR: needs tiles or entries")
+        self.shape: Tuple[int, int] = tuple(shape)
+        self.block = block
+        self._blocks = blocks     # (nnzb, block, block) float32 payloads
+        self.block_rows = block_rows  # (nnzb,) int32 block-row of each tile
+        self.block_cols = block_cols  # (nnzb,) int32 block-col of each tile
+        self.first = first        # (nnzb,) int32 1 iff first tile of its row
+        self.last = last          # (nnzb,) int32 1 iff last tile of its row
+        self.valid = valid        # (nnzb,) int32 0 for padding tiles
+        self.row_ptr = row_ptr    # (nbrows+1,) int32 pointers over tiles
+        self.nnz = nnz            # element count (pre-blocking)
+        # per-entry structure (nnzb, block, block) bool, present only when
+        # the build saw explicit 0.0 entries, which the payload cannot tell
+        # from absent; the tropical (bcast) product, to_coo and transpose
+        # read it
+        self.emask = emask
+        self._payload = entries
+        self._form = None
+        self._csr = None
+        self._tiles_held = None
+
+    def __repr__(self) -> str:
+        return (f"BSR(shape={self.shape}, block={self.block}, "
+                f"nnzb={self.nnzb}, nnz={self.nnz}, "
+                f"tiles={'lazy' if self._blocks is None else 'built'})")
 
     # -- properties ----------------------------------------------------------
     @property
+    def blocks(self) -> torch.Tensor:
+        """(nnzb, b, b) float32 tile payloads; an entry-produced handle
+        scatters its entries into zeroed tiles on first read."""
+        if self._blocks is None:
+            _tile_builds[0] += 1
+            E = self._payload
+            b = self.block
+            t = torch.zeros((self.nnzb, b, b), dtype=torch.float32,
+                            device=self.device)
+            t[E.tile_of(), E.rows.long(), E.cols.long()] = E.vals
+            self._blocks = t
+        return self._blocks
+
+    @property
     def device(self) -> torch.device:
-        return self.blocks.device
+        return self.block_rows.device
 
     @property
     def nnzb(self) -> int:
-        return self.blocks.shape[0]
+        return self.block_rows.shape[0]
 
     @property
     def nbrows(self) -> int:
@@ -75,10 +334,66 @@ class BSR:
         return -(-self.shape[1] // self.block)
 
     @property
+    def tiles_held(self) -> int:
+        """The valid (non-padding) tiles."""
+        if self._tiles_held is None:
+            self._tiles_held = int(self.valid.sum())
+        return self._tiles_held
+
+    @property
     def fill_ratio(self) -> float:
         """nnz / stored-tile capacity."""
-        cap = int(self.valid.sum()) * self.block * self.block
+        cap = self.tiles_held * self.block * self.block
         return self.nnz / max(cap, 1)
+
+    # -- the entry forms -----------------------------------------------------
+    def payload_form(self) -> EntryForm:
+        """Every tile element whose bits are not +0.0, -0.0 included: what
+        the element-wise entry kernel reads, so it sees a tile's -0.0s as
+        the tile kernel does. Built once, on the device."""
+        if self._payload is None:
+            self._payload = entry_form(self.blocks, signed_zeros=True)
+        return self._payload
+
+    def entry_form(self) -> EntryForm:
+        """The per-tile CSR of the nonzero entries (SpGEMM's operand): the
+        payload form without its -0.0s."""
+        if self._form is None:
+            self._form = drop_zeros(self.payload_form())
+        return self._form
+
+    def _stored_entries(self):
+        """(row, col, value) of the stored entries on the device, int64
+        coordinates, tiles in storage order and row-major inside a tile."""
+        b = self.block
+        if self._blocks is None:
+            E = self._payload
+            keep = E.vals != 0
+            t = E.tile_of()[keep]
+            return (self.block_rows[t].long() * b + E.rows[keep].long(),
+                    self.block_cols[t].long() * b + E.cols[keep].long(),
+                    E.vals[keep])
+        step = max(1, _SCAN_ENTRIES // (b * b))
+        rows, cols, vals = [], [], []
+        for lo in range(0, self.nnzb, step):
+            t, lr, lc = torch.nonzero(self._structure(lo, lo + step),
+                                      as_tuple=True)
+            t = t + lo
+            vals.append(self.blocks[t, lr, lc])
+            rows.append(self.block_rows[t].long() * b + lr)
+            cols.append(self.block_cols[t].long() * b + lc)
+        if not rows:
+            z = torch.zeros(0, dtype=torch.int64, device=self.device)
+            return z, z, torch.zeros(0, dtype=torch.float32,
+                                     device=self.device)
+        return torch.cat(rows), torch.cat(cols), torch.cat(vals)
+
+    def row_csr(self) -> RowCSR:
+        """The stored entries as one CSR over the rows (``bsr_mxm``'s entry
+        kernel reads it). Built once, on the device."""
+        if self._csr is None:
+            self._csr = _row_csr(*self._stored_entries(), self.shape)
+        return self._csr
 
     # -- construction --------------------------------------------------------
     @staticmethod
@@ -142,9 +457,11 @@ class BSR:
 
     @staticmethod
     def _from_meta(meta, payload, shape, block: int, nnz: int,
-                   emask=None) -> "BSR":
+                   emask=None, entries: Optional[EntryForm] = None) -> "BSR":
+        """A handle on ``meta``'s tile list holding ``payload`` tiles, or
+        (``payload`` None) the ``entries`` of its tiles."""
         a_r, a_c, valid, first, last, row_ptr, _ = meta
-        dev = payload.device
+        dev = (entries.vals if payload is None else payload).device
 
         def i32(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
@@ -152,7 +469,7 @@ class BSR:
         return BSR(shape=tuple(shape), block=block, blocks=payload,
                    block_rows=i32(a_r), block_cols=i32(a_c), first=i32(first),
                    last=i32(last), valid=i32(valid), row_ptr=i32(row_ptr),
-                   nnz=nnz, emask=emask)
+                   nnz=nnz, emask=emask, entries=entries)
 
     @staticmethod
     def _assemble(tiles: torch.Tensor, b_r, b_c, shape, block: int, nnz: int,
@@ -259,6 +576,48 @@ class BSR:
                                       block, pad_to=pad_to, prune=prune)
 
     @staticmethod
+    def from_entry_slots(block_rows, block_cols, base: torch.Tensor,
+                         rows: torch.Tensor, cols: torch.Tensor,
+                         vals: torch.Tensor, shape, block: int,
+                         pad_to: int = 8) -> "BSR":
+        """The handle of an entry-level op's output, holding entries (its
+        tiles are built on first read). Output tile t, at ``block_rows[t]``
+        / ``block_cols[t]`` in ascending key order, holds the results in
+        slots ``base[t]`` .. ``base[t + 1]``, row-major; a slot whose value
+        bits are +0.0 holds nothing. Every other result is kept, -0.0 too
+        (the tile kernel writes its bits), and the tiles left with no
+        nonzero value are pruned, as ``from_blocks_device`` prunes, so
+        the tile list, ``nnz`` and the built tiles equal the tile route's.
+        Only the (T,) occupancy and the nnz scalar cross to the host."""
+        n, m = shape
+        dev = vals.device
+        nbr, nbc = -(-n // block), -(-m // block)
+        if nbr == 0:
+            return BSR._empty((n, m), block, 0, dev)
+        b_r = np.asarray(block_rows, dtype=np.int32)
+        b_c = np.asarray(block_cols, dtype=np.int32)
+        T = len(b_r)
+        slot = torch.nonzero(vals.view(torch.int32) != 0).flatten()
+        tile = torch.searchsorted(base[1:], slot, right=True)
+        v = vals[slot]
+        nz = torch.bincount(tile[v != 0], minlength=T)
+        nz_h = nz.cpu().numpy()
+        occ = nz_h > 0
+        nnz = int(nz_h.sum())
+        keep = (nz > 0)[tile]
+        tile, slot, v = tile[keep], slot[keep], v[keep]
+        meta = BSR._assemble_meta(b_r[occ], b_c[occ], nbr, nbc, pad_to)
+        src = meta[-1]
+        pos = np.nonzero(src >= 0)[0]
+        # the kept tiles ascend by key, so their slots keep the entries'
+        # order: each entry only moves to its tile's slot number
+        new_of = np.full(T, -1, dtype=np.int64)
+        new_of[np.nonzero(occ)[0][src[pos]]] = pos
+        form = form_of_entries(torch.from_numpy(new_of).to(dev)[tile],
+                               rows[slot], cols[slot], v, len(src), block)
+        return BSR._from_meta(meta, None, (n, m), block, nnz, entries=form)
+
+    @staticmethod
     def from_dense(A, block: int = 128, device=None) -> "BSR":
         """Tiles of a dense matrix (tensor or numpy); on the tensor's device
         unless ``device`` is given (numpy input defaults to ``"cuda"``)."""
@@ -318,22 +677,10 @@ class BSR:
 
     def to_coo(self):
         """Host-side COO extraction, tiles in storage order and row-major
-        inside a tile (the JAX order); the selection runs on the device."""
+        inside a tile (the JAX order); the selection runs on the device,
+        from the entries where the handle holds no tiles."""
         xfer.record("bsr_to_coo")
-        b = self.block
-        step = max(1, _SCAN_ENTRIES // (b * b))
-        rows, cols, vals = [], [], []
-        for lo in range(0, self.nnzb, step):
-            t, lr, lc = torch.nonzero(self._structure(lo, lo + step),
-                                      as_tuple=True)
-            t = t + lo
-            vals.append(self.blocks[t, lr, lc].cpu())
-            rows.append((self.block_rows[t].long() * b + lr).cpu())
-            cols.append((self.block_cols[t].long() * b + lc).cpu())
-        if not rows:
-            return (np.zeros(0, np.int64),) * 2 + (np.zeros(0, np.float32),)
-        return (torch.cat(rows).numpy(), torch.cat(cols).numpy(),
-                torch.cat(vals).numpy())
+        return tuple(x.cpu().numpy() for x in self._stored_entries())
 
 
 # ---------------------------------------------------------------------------
@@ -463,10 +810,11 @@ def spgemm(A: BSR, B: BSR, sr, mask: Optional[BSR] = None,
 
     The symbolic phase (host) plans the block schedule and applies a
     structural mask block-wise; the numeric phase runs
-    ``kernels.bsr_spgemm.spgemm_blocks`` (the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors), folding the mask's element pattern
-    into each output tile's epilogue. All-zero output tiles are pruned.
-    """
+    ``kernels.bsr_spgemm.spgemm_blocks`` on the two handles (a CUDA kernel
+    on CUDA tensors, reading the handles' cached entry forms or their
+    tiles; the plain version on CPU tensors), folding the mask's element
+    pattern into each output tile's epilogue. All-zero output tiles are
+    pruned."""
     if A.shape[1] != B.shape[0]:
         raise ValueError(f"spgemm inner dims: {A.shape} x {B.shape}")
     if mask is not None and mask.shape != (A.shape[0], B.shape[1]):
@@ -495,8 +843,8 @@ def spgemm(A: BSR, B: BSR, sr, mask: Optional[BSR] = None,
         present = torch.from_numpy(plan.mask_sel >= 0).to(A.device)
         mask_blocks = torch.where(present[:, None, None],
                                   mask.blocks.to(torch.float32)[sel], 0.0)
-    cblocks = _k.spgemm_blocks(A.blocks, B.blocks, plan, sr,
-                               mask_blocks=mask_blocks, complement=complement)
+    cblocks = _k.spgemm_blocks(A, B, plan, sr, mask_blocks=mask_blocks,
+                               complement=complement)
     return BSR.from_blocks_device(plan.c_rows, plan.c_cols, cblocks, shape,
                                   A.block)
 
@@ -603,10 +951,17 @@ def ewise_plan(mode: str, A: BSR, B: Optional[BSR] = None):
 
 
 def _ewise(mode: str, A: BSR, B: Optional[BSR], op) -> BSR:
-    """Plan on the host, map the tiles on the device
-    (``kernels.bsr_ewise``), prune emptied tiles."""
+    """Plan on the host; the operands' fill picks the numeric phase
+    (``kernels.bsr_ewise.pick``): the entry kernel on the payload forms,
+    whose output stays entries (a handle that builds its tiles on first
+    read), or the tile kernel, whose output tiles are pruned."""
     from repro_torch.kernels import bsr_ewise as _k   # kernels import core
     sel_a, sel_b, rows, cols, B = ewise_plan(mode, A, B)
+    if _k.pick(A, B) == "entry":
+        out = _k.map_entries(A.payload_form(), sel_a,
+                             None if B is None else B.payload_form(), sel_b,
+                             mode, op)
+        return BSR.from_entry_slots(rows, cols, *out, A.shape, A.block)
     res = _k.map_tiles(A.blocks, sel_a, None if B is None else B.blocks,
                        sel_b, mode, op)
     return BSR.from_blocks_device(rows, cols, res, A.shape, A.block)

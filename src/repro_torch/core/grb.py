@@ -26,8 +26,10 @@ Port of ``repro.core.grb``, cut to what the k-hop MATCH path reaches:
 Where the JAX package asks ``jax.default_backend() == "tpu"`` (and, for
 BSR, its measured crossover) before taking a Pallas kernel, the port asks
 where the tensors lie: CUDA tensors launch the hand-written kernels
-(``kernels.ops``) at every width and fill, CPU tensors take their plain
-versions. The JAX package's ``grb`` runs its BSR element-wise plans
+(``kernels.ops``) at every width, CPU tensors take their plain versions;
+for BSR the handle's fill picks between each kernel's entry and tile
+variants (``MXM_ENTRY_MAX_FILL``, ``EWISE_ENTRY_MAX_FILL``, measured on
+the card), on the CPU between their plain versions. The JAX package's ``grb`` runs its BSR element-wise plans
 through XLA; the port's launch ``bsr_ewise`` on the card. Element-wise
 ops on BSR operands are named (``semiring.ewise`` or a Monoid); dense
 tensors and ELL take any callable. Dense storage handles, delta and
@@ -128,13 +130,32 @@ def _fmt_of(store) -> str:
         f"storage, delta storage in item 9, sharded storage in item 10)")
 
 
-# -- the JAX package's BSR crossover (measured there on XLA-CPU for a TPU by
-# benchmarks/bench_triangles.py), kept for parity. The port does not read
-# them: every BSR mxm / spgemm on CUDA tensors launches its kernel, at any
-# width and fill; a crossover measured on the card is open (ROADMAP).
-AUTO_MIN_GRID = 4     # block-rows/-cols below this: one dense matmul wins
-AUTO_MAX_FILL = 0.25  # stored-tile fill above this: effectively dense
-AUTO_MIN_WIDTH = 8    # B frontier narrower than this: XLA (auto handles only)
+# -- the card's crossovers between the entry and tile kernels of bsr_mxm
+# and bsr_ewise, by tile side: an operand (or pair) of side b whose fill
+# (stored entries over the capacity of its valid tiles) is under the value
+# of the smallest side listed >= b takes the entry kernel, else the tile
+# kernel; the CPU's plain versions follow the same choice. Measured by the
+# fill sweeps of chip_smoke.py on an NVIDIA H100 80GB HBM3 (PERF.md). They
+# replace the JAX package's AUTO_MIN_GRID / AUTO_MAX_FILL / AUTO_MIN_WIDTH,
+# measured there on XLA-CPU for a TPU, which the port never read. SpGEMM's
+# table is kernels.bsr_spgemm.ENTRY_MAX_FILL.
+#   bsr_mxm: uniform tiles cross at 15-25% (b = 128), 25-50% (64) and
+#   50-100% (32); at 16 the entry kernel wins at every fill (1.01); the
+#   planted-partition 128-tiles at 14-22%.
+#   bsr_ewise: intersect crosses at 10-15% (128) and 15-25% (64), select
+#   later; the planted-partition 128-tiles' intersect at 4.9-8.4%; at 16
+#   and 32 the two tie within launch overhead below 25%, and the tile
+#   kernel wins at 100% (16) and 50% (32).
+# Each value is the geometric middle of the tightest bracket.
+MXM_ENTRY_MAX_FILL = {16: 1.01, 32: 0.7, 64: 0.35, 128: 0.18}
+EWISE_ENTRY_MAX_FILL = {16: 0.5, 32: 0.35, 64: 0.19, 128: 0.065}
+
+
+def entry_max_fill(table, b: int) -> float:
+    """``table``'s crossover for tiles of side ``b`` (past the largest side
+    listed, that side's)."""
+    sides = [s for s in table if s >= b]
+    return table[min(sides) if sides else max(table)]
 
 
 # -- bitmap-packed frontier policy (the JAX package's value, measured there

@@ -12,32 +12,39 @@ the TPU.
          full tiles.
   entry  ``csrc/bsr_spgemm_entry.cu``: one multiply-add per pair of stored
          entries, on each operand's :class:`EntryForm` (a per-tile CSR
-         built on the device by :func:`entry_form`), for sparse tiles.
+         built on the device by :func:`entry_form`, cached by the BSR
+         handle, ``core.bsr``), for sparse tiles.
 
-``spgemm_blocks(Ablocks, Bblocks, plan, sr, ...)`` launches one of the two
-when its tensors lie on a CUDA device, the entry kernel when the operands'
-fill is under ``entry_max_fill(b)`` and the tile kernel otherwise; neither
+``spgemm_blocks(A, B, plan, sr, ...)`` (tiles or BSR handles) launches one
+of the two when its tensors lie on a CUDA device, the entry kernel when
+the operands' fill is under ``entry_max_fill(b)`` and their values are
+finite where the product reads them, the tile kernel otherwise; neither
 ever gives way to the other or to the plain version. On the CPU it takes
 the plain version, ``spgemm_blocks_plain`` (the port of ``_spgemm_jnp``).
 ``launches`` counts kernel launches, ``launches_entry`` and
-``launches_tile`` those of each kernel.
+``launches_tile`` those of each kernel, ``picked`` the last choice.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import semiring as S
-from repro_torch.core.bsr import SPGEMM_MODES, SpGEMMPlan
+# the entry forms live with the handle that caches them; re-exported here
+from repro_torch.core.bsr import (BANDS, BSR, SPGEMM_MODES,  # noqa: F401
+                                  EntryForm, SpGEMMPlan, entry_counts,
+                                  entry_form, operand_fill, stored_fill)
 from repro_torch.kernels import KernelError
 
 launches = 0          # kernel launches since import (plain calls excluded)
 launches_entry = 0    # of which the entry kernel's
 launches_tile = 0     # of which the tile kernel's
+picked = None         # the last dispatch's kernel: "entry", "tile" or
+                      # "tile (non-finite)"
 
 MAX_BLOCK = 128       # both kernels hold one output tile per thread block
 
@@ -63,11 +70,6 @@ _MODES = {"dot": 0, "dot_indicator": 1, "dot_pair": 2, "dot_first": 3}
 # reference gathers every task's tiles at once, 1.0M tasks x 64 KB x 2 =
 # 132 GB for the Graph500 scale-14 hop matrix
 _CHUNK_ENTRIES = 1 << 27
-# tile elements per chunk of the entry-form build (a 64 MB bool scan and at
-# most 512 MB of int64 positions at a time)
-_FORM_ENTRIES = 1 << 26
-BANDS = 32            # row bands per tile in EntryForm.bands
-
 _bound = None
 _bound_entry = None
 
@@ -96,94 +98,6 @@ def _fn_entry():
         fn.restype = ctypes.c_int
         _bound_entry = fn
     return _bound_entry
-
-
-# -- the entry form -----------------------------------------------------------
-@dataclasses.dataclass
-class EntryForm:
-    """The nonzeros of a stack of (b x b) tiles as one CSR per tile. Tile
-    t's row i holds entries ``base[t] + row_ptr[t, i]`` up to
-    ``base[t] + row_ptr[t, i + 1]``, sorted by column. Zeros are dropped:
-    they add nothing in any dot mode (for finite inputs)."""
-    block: int
-    base: torch.Tensor     # (nnzb + 1,) int64 first entry of each tile
-    row_ptr: torch.Tensor  # (nnzb, b + 1) int32 offsets inside the tile
-    rows: torch.Tensor     # (E,) uint8 row in the tile
-    cols: torch.Tensor     # (E,) uint8 column in the tile
-    vals: torch.Tensor     # (E,) float32
-    bands: torch.Tensor    # (nnzb,) int32 bit q: band q of rows holds one
-    entries: int           # E
-
-
-def entry_counts(blocks: torch.Tensor) -> torch.Tensor:
-    """(nnzb, b) int32: the nonzeros of each tile row, chunked."""
-    nnzb, b = int(blocks.shape[0]), int(blocks.shape[1])
-    step = max(1, _FORM_ENTRIES // (b * b))
-    if nnzb == 0:
-        return torch.zeros((0, b), dtype=torch.int32, device=blocks.device)
-    return torch.cat([(blocks[lo:lo + step] != 0).sum(dim=2,
-                                                      dtype=torch.int32)
-                      for lo in range(0, nnzb, step)])
-
-
-def _occupancy(counts: torch.Tensor):
-    """(entries, tiles holding any) of one operand's row counts."""
-    per_tile = counts.sum(dim=1, dtype=torch.int64)
-    return int(per_tile.sum()), int((per_tile > 0).sum())
-
-
-def operand_fill(*counts: torch.Tensor) -> float:
-    """The fill the dispatch reads: stored entries over the capacity of
-    the tiles that hold any, over the distinct operands' row counts (for
-    one BSR of distinct nonzero entries, ``BSR.fill_ratio``)."""
-    b = int(counts[0].shape[1])
-    occ = [_occupancy(c) for c in counts]
-    return (sum(e for e, _ in occ)
-            / max(sum(t for _, t in occ) * b * b, 1))
-
-
-def entry_form(blocks: torch.Tensor,
-               counts: Optional[torch.Tensor] = None) -> EntryForm:
-    """The per-tile CSR of ``blocks`` (nnzb, b, b), on their device: plain
-    torch glue, a chunked ``nonzero`` in row-major order, which groups the
-    entries by tile and row and sorts each row by column."""
-    nnzb, b = int(blocks.shape[0]), int(blocks.shape[1])
-    if b > 256:
-        raise ValueError(f"entry_form: tile side {b} > 256 does not fit "
-                         f"uint8 coordinates")
-    dev = blocks.device
-    if counts is None:
-        counts = entry_counts(blocks)
-    row_ptr = torch.zeros((nnzb, b + 1), dtype=torch.int32, device=dev)
-    row_ptr[:, 1:] = torch.cumsum(counts, dim=1, dtype=torch.int32)
-    per_tile = row_ptr[:, -1].to(torch.int64)
-    base = torch.zeros(nnzb + 1, dtype=torch.int64, device=dev)
-    base[1:] = torch.cumsum(per_tile, dim=0)
-    base_h = base.cpu().numpy()
-    E = int(base_h[-1])
-    rows = torch.empty(E, dtype=torch.uint8, device=dev)
-    cols = torch.empty(E, dtype=torch.uint8, device=dev)
-    vals = torch.empty(E, dtype=torch.float32, device=dev)
-    flat = blocks.reshape(nnzb, b * b)
-    step = max(1, _FORM_ENTRIES // (b * b))
-    for lo in range(0, nnzb, step):
-        hi = min(lo + step, nnzb)
-        s, e = int(base_h[lo]), int(base_h[hi])
-        if s == e:
-            continue
-        chunk = flat[lo:hi]
-        t, p = torch.nonzero(chunk, as_tuple=True)
-        rows[s:e] = torch.div(p, b, rounding_mode="floor").to(torch.uint8)
-        cols[s:e] = (p % b).to(torch.uint8)
-        vals[s:e] = chunk[t, p].to(torch.float32)
-    band_of = torch.arange(b, device=dev) * BANDS // b
-    per_band = torch.zeros((nnzb, BANDS), dtype=torch.int32, device=dev)
-    per_band.index_add_(1, band_of, counts)
-    word = ((per_band > 0).to(torch.int64)
-            << torch.arange(BANDS, device=dev)).sum(dim=1)
-    bands = torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
-    return EntryForm(block=b, base=base, row_ptr=row_ptr, rows=rows,
-                     cols=cols, vals=vals, bands=bands, entries=E)
 
 
 # -- the plain version ------------------------------------------------------
@@ -348,39 +262,72 @@ def spgemm_entry(EA: EntryForm, EB: EntryForm, dplan: DevicePlan,
     return c
 
 
-def spgemm_blocks(Ablocks: torch.Tensor, Bblocks: torch.Tensor,
+# the modes whose products read each operand's values (and not only
+# whether an entry is there): a non-finite value there meets the zeros the
+# entry kernel skips, so those products take the tile kernel
+_VALUES_READ = {"dot": (True, True), "dot_first": (True, False)}
+
+
+def _finite(form: EntryForm) -> bool:
+    return bool(torch.isfinite(form.vals).all())
+
+
+def spgemm_blocks(A: Union[torch.Tensor, BSR], B: Union[torch.Tensor, BSR],
                   plan: SpGEMMPlan, sr: S.Semiring, *,
                   mask_blocks: Optional[torch.Tensor] = None,
                   complement: bool = False) -> torch.Tensor:
     """Run a symbolic plan's numeric phase; returns (nc, b, b) output tiles.
-    ``mask_blocks`` (nc, b, b) is aligned with the output tiles. On CUDA
-    tiles the operands' fill picks the kernel (``entry_max_fill``); when
-    both operands are one tensor (A x A) its entry form is built once."""
+    ``A`` / ``B`` are tile stacks (nnzb, b, b) or BSR handles, whose cached
+    entry forms the entry kernel reads (their tiles are read only by the
+    tile kernel and the plain version). ``mask_blocks`` (nc, b, b) is
+    aligned with the output tiles. On CUDA the operands' fill picks the
+    kernel (``entry_max_fill``), and a product whose values meet a
+    non-finite stored value (dot: either operand, dot_first: A) takes the
+    tile kernel, which multiplies the absent zeros the entry kernel skips
+    (``picked`` says which ran, and why). A x A reads one form."""
+    global picked
     if sr.mode not in SPGEMM_MODES:
         raise NotImplementedError(f"spgemm_blocks: mode {sr.mode!r}")
-    b = int(Ablocks.shape[1])
-    tensors = [Ablocks, Bblocks] + ([] if mask_blocks is None
-                                    else [mask_blocks])
+    same = B is A
+    handles = isinstance(A, BSR)
+    if handles != isinstance(B, BSR):
+        raise TypeError("spgemm_blocks: A and B must both be tiles or both "
+                        "BSR handles")
+    dev = A.device
+    tensors = [A if not handles else A.block_rows,
+               B if not handles else B.block_rows] + (
+        [] if mask_blocks is None else [mask_blocks])
+    b = A.block if handles else int(A.shape[1])
     if all(t.device.type == "cpu" for t in tensors):
-        return spgemm_blocks_plain(Ablocks, Bblocks, plan, sr, mask_blocks,
-                                   complement)
-    dev = Ablocks.device
+        tiles = (A.blocks, B.blocks) if handles else (A, B)
+        return spgemm_blocks_plain(*tiles, plan, sr, mask_blocks, complement)
     if dev.type != "cuda":
         raise ValueError(f"spgemm_blocks: tiles on {dev}; all must lie on "
                          f"one CUDA device (or all on the CPU)")
-    if tuple(Bblocks.shape[1:]) != (b, b):
-        raise ValueError(f"spgemm_blocks: tiles {tuple(Ablocks.shape[1:])} "
-                         f"x {tuple(Bblocks.shape[1:])}; the kernels take "
-                         f"square tiles of one side")
+    bb = B.block if handles else int(B.shape[1])
+    if bb != b or (not handles and tuple(B.shape[1:]) != (b, b)):
+        raise ValueError(f"spgemm_blocks: tile sides {b} and {bb}; the "
+                         f"kernels take square tiles of one side")
     dplan = device_plan(plan, dev)
     _check(b, sr, dplan, dev, tensors, mask_blocks, "spgemm_blocks")
-    same = Bblocks is Ablocks
-    ca = entry_counts(Ablocks)
-    cb = ca if same else entry_counts(Bblocks)
-    if operand_fill(*([ca] if same else [ca, cb])) >= entry_max_fill(b):
-        return spgemm_tile(Ablocks, Bblocks, dplan, sr,
-                           mask_blocks=mask_blocks, complement=complement)
-    EA = entry_form(Ablocks, ca)
-    EB = EA if same else entry_form(Bblocks, cb)
-    return spgemm_entry(EA, EB, dplan, sr, mask_blocks=mask_blocks,
-                        complement=complement)
+    ops = [A] if same else [A, B]
+    if handles:
+        fill = stored_fill(*ops)
+    else:
+        counts = [entry_counts(X) for X in ops]
+        fill = operand_fill(*counts)
+    picked = "tile"
+    if fill < entry_max_fill(b):
+        forms = ([X.entry_form() for X in ops] if handles else
+                 [entry_form(X, c) for X, c in zip(ops, counts)])
+        EA, EB = forms[0], forms[-1]
+        reads = _VALUES_READ.get(sr.mode, (False, False))
+        if (reads[0] and not _finite(EA)) or (reads[1] and not _finite(EB)):
+            picked = "tile (non-finite)"
+        else:
+            picked = "entry"
+            return spgemm_entry(EA, EB, dplan, sr, mask_blocks=mask_blocks,
+                                complement=complement)
+    tiles = (A.blocks, B.blocks) if handles else (A, B)
+    return spgemm_tile(*tiles, dplan, sr, mask_blocks=mask_blocks,
+                       complement=complement)

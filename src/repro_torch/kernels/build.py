@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``build/lib<name>-<hash>.so`` beside this file; the hash of the source
-names the library, so an edited source builds anew and an unchanged one
-is reused. :func:`build_all` starts one ``nvcc`` per source, all at once.
+and of the shared headers (``csrc/*.cuh``) names the library, so an
+edited source builds anew and an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source, all at once.
 The libraries load with ``ctypes``; nothing here runs at import.
 """
 from __future__ import annotations
@@ -43,8 +43,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, named by the hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -477,6 +477,7 @@ def test_bsr_server_reports_a_kernel_that_cannot_load(monkeypatch):
 
     monkeypatch.setattr(build, "load", no_library)
     monkeypatch.setattr(bsr_mxm, "_bound", None)
+    monkeypatch.setattr(bsr_mxm, "_bound_entry", None)
     monkeypatch.setattr(bsr_spgemm, "_bound", None)
     monkeypatch.setattr(bsr_spgemm, "_bound_entry", None)
     g = datagen.rmat_graph(9, fmt="bsr", device="cuda")
@@ -488,6 +489,203 @@ def test_bsr_server_reports_a_kernel_that_cannot_load(monkeypatch):
     assert srv.pending == 0
     assert all("KernelError" in (out[q].error or "") for q in qids)
     assert srv.stats["errors"] == len(qids)
+
+
+# -- bsr_mxm's two kernels: entry against plain and against tile ------------
+# The entry kernel folds each output element's terms in the tile kernel's
+# (tile, column) order with the same operations and skips only entries A
+# does not store, so the two agree bit for bit in every mode for finite X;
+# against the entry plain version (a gather and index_add) the 0/1 modes
+# and bcast agree bit for bit and dot / dot_first within the tolerance of
+# ``_same``.
+@pytest.mark.parametrize("srname", SEMIRINGS)
+@pytest.mark.parametrize("n,m,f,block,empty,zeros", BSR_CASES)
+def test_bsr_mxm_entry_matches_plain_and_tile(n, m, f, block, empty, zeros,
+                                              srname, no_tf32):
+    rng = np.random.default_rng(n + f + 1)
+    r, c, v = _bsr_coo(rng, n, m, 6 * n, empty, zeros)
+    A = BSR.from_coo(r, c, v, (n, m), block=block, device="cuda")
+    X = torch.from_numpy(np.where(
+        rng.uniform(size=(m, f)) < 0.35, rng.uniform(0.5, 2.0, size=(m, f)),
+        0.0).astype(np.float32)).cuda()
+    M = torch.from_numpy((rng.uniform(size=(n, f)) < 0.5).astype(
+        np.float32)).cuda()
+    sr = S.get(srname)
+    csr = A.row_csr()
+    for mask, comp in ((None, False), (M, False), (M, True)):
+        before = (bsr_mxm.launches_entry, bsr_mxm.launches_tile)
+        got = bsr_mxm.bsr_mxm_entry(csr, X, sr, mask=mask, complement=comp)
+        tile = bsr_mxm.bsr_mxm_tile(A, X, sr, mask=mask, complement=comp)
+        torch.cuda.synchronize()
+        assert (bsr_mxm.launches_entry, bsr_mxm.launches_tile) == (
+            before[0] + 1, before[1] + 1)
+        plain = bsr_mxm.mask_epilogue(
+            bsr_mxm.bsr_mxm_entry_plain(csr, X, sr), mask, comp, sr.identity)
+        _same(got, plain, sr)
+        assert torch.equal(got, tile), (srname, mask is not None, comp)
+
+
+@pytest.mark.parametrize("f", [1, 130, 512])
+def test_bsr_mxm_entry_long_rows_match_plain_and_tile(f, no_tf32):
+    """Rows past ``LONG_ROW`` (hubs of 300 and 900 entries, one a full
+    block-row) take the entry kernel's 32-column slices; the rest its wide
+    slices: both equal the tile kernel bit for bit in every mode."""
+    rng = np.random.default_rng(25 + f)
+    n, m = 600, 900
+    r, c, v = _bsr_coo(rng, n, m, 3000, (), 4)
+    hub_c = np.r_[rng.choice(m, 300, replace=False), np.arange(m)]
+    r = np.r_[r, np.full(300, 7), np.full(m, 450)]
+    c = np.r_[c, hub_c]
+    v = np.round(np.r_[v, rng.uniform(0.5, 2.0, size=300 + m)] * 2)
+    A = BSR.from_coo(r, c, v, (n, m), block=128, device="cuda")
+    csr = A.row_csr()
+    assert csr.rows_at_least(bsr_mxm.LONG_ROW) == 2
+    X = torch.from_numpy(np.where(
+        rng.uniform(size=(m, f)) < 0.35, rng.integers(1, 4, size=(m, f)),
+        0).astype(np.float32)).cuda()
+    M = torch.from_numpy((rng.uniform(size=(n, f)) < 0.5).astype(
+        np.float32)).cuda()
+    for srname in SEMIRINGS:
+        sr = S.get(srname)
+        for mask, comp in ((None, False), (M, True)):
+            got = bsr_mxm.bsr_mxm_entry(csr, X, sr, mask=mask,
+                                        complement=comp)
+            tile = bsr_mxm.bsr_mxm_tile(A, X, sr, mask=mask,
+                                        complement=comp)
+            plain = bsr_mxm.mask_epilogue(bsr_mxm.bsr_mxm_entry_plain(
+                csr, X, sr), mask, comp, sr.identity)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tile), (srname, comp)
+            assert torch.equal(got, plain), (srname, comp)
+
+
+def test_bsr_mxm_row_csr_on_cuda_equals_cpu():
+    rng = np.random.default_rng(21)
+    r, c, v = _bsr_coo(rng, 300, 260, 1800, range(0, 64), 5)
+    for f in ("indptr", "cols", "vals", "order"):
+        got = getattr(BSR.from_coo(r, c, v, (300, 260), block=64,
+                                   device="cuda").row_csr(), f)
+        want = getattr(BSR.from_coo(r, c, v, (300, 260), block=64,
+                                    device="cpu").row_csr(), f)
+        assert torch.equal(got.cpu(), want), f
+
+
+@pytest.mark.parametrize("limit,variant", [(0.0, "tile"), (1.01, "entry")])
+def test_bsr_mxm_dispatch_picks_by_fill(limit, variant, monkeypatch):
+    monkeypatch.setattr(bsr_mxm, "entry_max_fill", lambda b: limit)
+    rng = np.random.default_rng(22)
+    r, c, v = _bsr_coo(rng, 200, 150, 900, range(64, 96))
+    A = BSR.from_coo(r, c, v, (200, 150), block=32, device="cuda")
+    X = torch.from_numpy(rng.integers(0, 3, size=(150, 70)).astype(
+        np.float32)).cuda()
+    e0, t0 = bsr_mxm.launches_entry, bsr_mxm.launches_tile
+    got = bsr_mxm.bsr_mxm(A, X, S.PLUS_PAIR)
+    torch.cuda.synchronize()
+    assert bsr_mxm.picked == variant
+    assert (bsr_mxm.launches_entry - e0, bsr_mxm.launches_tile - t0) == (
+        int(variant == "entry"), int(variant == "tile"))
+    assert torch.equal(got, ops.bsr_mxm_plain(A, X, S.PLUS_PAIR))
+
+
+@pytest.mark.parametrize("bad", [np.inf, -np.inf, np.nan])
+def test_bsr_mxm_non_finite_frontier_takes_the_tile_kernel(bad, no_tf32):
+    """A dot product over an X holding an inf or NaN: the tile kernel
+    multiplies A's absent zeros (0 * inf = NaN) as the JAX package does,
+    the entry kernel would skip them; the dispatch sends it to the tile
+    kernel and says so, and the result equals the plain version, NaN
+    positions included. The 0/1 modes stay on the entry kernel."""
+    rng = np.random.default_rng(23)
+    r, c, v = _bsr_coo(rng, 200, 150, 900, (), 3)
+    v = np.round(v * 2)                            # integer weights: exact
+    A = BSR.from_coo(r, c, v, (200, 150), block=32, device="cuda")
+    Xh = rng.integers(0, 3, size=(150, 40)).astype(np.float32)
+    Xh[5, 3] = Xh[77, 0] = bad
+    X = torch.from_numpy(Xh).cuda()
+    got = bsr_mxm.bsr_mxm(A, X, S.PLUS_TIMES)
+    torch.cuda.synchronize()
+    assert bsr_mxm.picked == "tile (non-finite)"
+    want = ops.bsr_mxm_plain(A, X, S.PLUS_TIMES)
+    assert torch.isnan(want).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    bsr_mxm.bsr_mxm(A, X, S.OR_AND)
+    assert bsr_mxm.picked == "entry"
+
+
+@pytest.mark.parametrize("variant", ["entry", "tile"])
+def test_bsr_mxm_kernel_failure_raises(variant, monkeypatch):
+    """A variant that fails to launch or to load raises KernelError; the
+    other variant and the plain version are never taken."""
+    from repro_torch.kernels import KernelError, build
+    rng = np.random.default_rng(24)
+    r, c, v = _bsr_coo(rng, 200, 150, 900)
+    A = BSR.from_coo(r, c, v, (200, 150), block=32, device="cuda")
+    X = torch.ones((150, 8), device="cuda")
+    attr = "_bound_entry" if variant == "entry" else "_bound"
+    monkeypatch.setattr(bsr_mxm, "entry_max_fill",
+                        lambda b: 1.01 if variant == "entry" else 0.0)
+    before = (bsr_mxm.launches, bsr_mxm.launches_entry,
+              bsr_mxm.launches_tile)
+    monkeypatch.setattr(bsr_mxm, attr, lambda *a: 700)   # cudaError 700
+    with pytest.raises(KernelError):
+        bsr_mxm.bsr_mxm(A, X, S.OR_AND)
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bsr_mxm, attr, None)
+    with pytest.raises(KernelError):
+        bsr_mxm.bsr_mxm(A, X, S.OR_AND)
+    assert (bsr_mxm.launches, bsr_mxm.launches_entry,
+            bsr_mxm.launches_tile) == before
+
+
+# -- bsr_spgemm on non-finite payloads -----------------------------------------
+@pytest.mark.parametrize("bad", [np.inf, np.nan])
+@pytest.mark.parametrize("srname", ["plus_times", "plus_first"])
+def test_bsr_spgemm_non_finite_payload_takes_the_tile_kernel(bad, srname,
+                                                             no_tf32):
+    """An inf (or a NaN) in B's tiles next to a stored 0 and an absent
+    entry of A's (plus_times), or in A's tiles against B's absent entries
+    (plus_first): the tile kernel and the plain version multiply whole
+    tiles, so those products are NaN; the entry kernel skips them. The
+    dispatch sends the product to the tile kernel and says so. Under
+    plus_times the result equals the plain version, NaN positions
+    included; under plus_first (where cuBLAS's batched product and the
+    tile kernel's fmaf chain meet inf * 0 differently) it equals the
+    tile kernel's, which holds the NaNs the entry kernel does not."""
+    b = 32
+    ra = np.array([0, 0, 1, 2], np.int64)
+    ca = np.array([0, 1, 1, 3], np.int64)
+    va = np.array([0.0, 2.0, 1.0, 3.0])              # A[0, 0] stored 0
+    rb = np.array([0, 1, 1, 3, 5], np.int64)
+    cb = np.array([4, 4, 6, 6, 7], np.int64)
+    vb = np.array([bad, 1.0, 2.0, 1.0, 1.0])         # B[0, 4] meets A's 0
+    if srname == "plus_first":
+        va = np.array([0.0, bad, 1.0, 3.0])
+        vb = np.array([1.0, 1.0, 2.0, 1.0, 1.0])
+    A = BSR.from_coo(ra, ca, va, (b, b), block=b, device="cuda")
+    B = BSR.from_coo(rb, cb, vb, (b, b), block=b, device="cuda")
+    plan = bsr_mod.spgemm_symbolic(A, B)
+    sr = S.get(srname)
+    got = bsr_spgemm.spgemm_blocks(A, B, plan, sr)
+    torch.cuda.synchronize()
+    assert bsr_spgemm.picked == "tile (non-finite)"
+    want = bsr_spgemm.spgemm_blocks_plain(A.blocks, B.blocks, plan, sr)
+    assert torch.isnan(want).any()
+    if srname == "plus_first":
+        dp = bsr_spgemm.device_plan(plan, "cuda")
+        want = bsr_spgemm.spgemm_tile(A.blocks, B.blocks, dp, sr)
+        skipped = bsr_spgemm.spgemm_entry(A.entry_form(), B.entry_form(),
+                                          dp, sr)
+        assert int(torch.isnan(skipped).sum()) < int(torch.isnan(want).sum())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    # the tile stacks take the same guard
+    got_t = bsr_spgemm.spgemm_blocks(A.blocks, B.blocks, plan, sr)
+    assert bsr_spgemm.picked == "tile (non-finite)"
+    torch.testing.assert_close(got_t, want, rtol=0, atol=0, equal_nan=True)
+    bsr_spgemm.spgemm_blocks(A, B, plan, S.PLUS_PAIR)
+    assert bsr_spgemm.picked == "entry"
 
 
 # -- BSR element-wise: kernel bsr_ewise ----------------------------------------
@@ -579,6 +777,130 @@ def test_bsr_ewise_kernel_that_cannot_load_raises(monkeypatch):
     with pytest.raises(KernelError):
         bsr_ewise.map_tiles(A, sa, None, None, "select", S.ewise("gt", 0.0))
     assert bsr_ewise.launches == before
+
+
+# -- bsr_ewise's entry kernel: against its plain version and the tile kernel
+def _ewise_handles(rng, b, special=False):
+    """Two BSR handles of 2.5 x 2 tiles with absent block-rows on either
+    side; ``special`` values hold NaN, +-inf, values whose product
+    underflows to -0.0 and pairs that cancel (+-0 results), and A holds
+    tile-built -0.0s (a crop of negative values)."""
+    n, m = 5 * b // 2, 2 * b + 3
+    hands = []
+    for skip in (range(0, b // 2), range(b, 3 * b // 2)):
+        r = rng.integers(0, n, size=6 * n)
+        c = rng.integers(0, m, size=6 * n)
+        keep = ~np.isin(r, list(skip))
+        choices = [-2, -1, -0.5, 0.5, 1, 2]
+        if special:
+            choices += [np.nan, np.inf, -np.inf, 1e-30, -1e-30, 3.0]
+        v = rng.choice(choices, size=int(keep.sum()))
+        hands.append(BSR.from_coo(r[keep], c[keep], v, (n, m), block=b,
+                                  device="cuda"))
+    if special:
+        hands[0] = bsr_mod.extract_ranges(hands[0], 0, n - 1, 0, m - 2)
+        hands[1] = bsr_mod.extract_ranges(hands[1], 0, n - 1, 0, m - 2)
+    return hands
+
+
+def _same_handle(got, want):
+    assert got.nnz == want.nnz
+    for f in ("blocks", "block_rows", "block_cols", "first", "last",
+              "valid", "row_ptr"):
+        g, w = getattr(got, f), getattr(want, f)
+        if f == "blocks":
+            g, w = g.view(torch.int32), w.view(torch.int32)  # bit for bit
+        assert torch.equal(g, w), f
+
+
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("mode", list(EWISE_OPS))
+@pytest.mark.parametrize("b", [16, 32, 128])
+def test_bsr_ewise_entry_matches_plain_and_tile(mode, b, special,
+                                                monkeypatch):
+    """Each op through ``core.bsr`` on the entry kernel, its plain version
+    and the tile kernel: the slots equal the plain version's bit for bit,
+    the handles (lazily built tiles, tile lists, nnz) the tile route's."""
+    rng = np.random.default_rng(b + len(mode) + special)
+    A, B = _ewise_handles(rng, b, special)
+    fn = {"union": bsr_mod.ewise_add, "intersect": bsr_mod.ewise_mult,
+          "apply": bsr_mod.apply_stored, "select": bsr_mod.select_stored,
+          "mask": lambda X, Y, op: bsr_mod.mask_keep(X, Y),
+          "mask_c": lambda X, Y, op: bsr_mod.mask_keep(X, Y, True)}[mode]
+    unary = mode in bsr_ewise.UNARY_MODES
+    for op in EWISE_OPS[mode]:
+        args = (A, op) if unary else (A, B, op)
+        sel_a, sel_b, _, _, Bs = bsr_mod.ewise_plan(mode, A, None if unary
+                                                    else B)
+        FB = None if unary else Bs.payload_form()
+        got = bsr_ewise.map_entries(A.payload_form(), sel_a, FB, sel_b,
+                                    mode, op)
+        want = bsr_ewise.map_entries_plain(
+            A.payload_form(), sel_a, FB, sel_b, mode, op)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        # fminf / fmaxf drop a NaN that torch.minimum / maximum keep (the
+        # tile kernel's known difference): the kernels agree, not the plain
+        if not (special and getattr(op, "name", None) in ("min", "max")):
+            assert torch.equal(got[3].view(torch.int32),
+                               want[3].view(torch.int32)), (mode, op)
+            keep = got[3].view(torch.int32) != 0
+            for g, w in zip(got[1:3], want[1:3]):
+                assert torch.equal(g[keep], w[keep])
+        monkeypatch.setattr(bsr_ewise, "entry_max_fill", lambda b_: 1.01)
+        e0 = bsr_ewise.launches_entry
+        via_entry = fn(*args)
+        assert bsr_ewise.picked == "entry"
+        assert bsr_ewise.launches_entry == e0 + int(len(sel_a) > 0)
+        monkeypatch.setattr(bsr_ewise, "entry_max_fill", lambda b_: 0.0)
+        via_tile = fn(*args)
+        assert bsr_ewise.picked == "tile"
+        _same_handle(via_entry, via_tile)
+
+
+def test_bsr_ewise_entry_payload_form_on_cuda_equals_cpu():
+    rng = np.random.default_rng(31)
+    A, _ = _ewise_handles(rng, 64, special=True)
+    fc, fh = A.payload_form(), _to_cpu(A).payload_form()
+    for f in ("base", "row_ptr", "rows", "cols", "vals", "bands"):
+        g, w = getattr(fc, f).cpu(), getattr(fh, f)
+        if f == "vals":
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f
+
+
+def _to_cpu(A):
+    return BSR(A.shape, A.block, A.blocks.cpu(), A.block_rows.cpu(),
+               A.block_cols.cpu(), A.first.cpu(), A.last.cpu(),
+               A.valid.cpu(), A.row_ptr.cpu(), A.nnz,
+               None if A.emask is None else A.emask.cpu())
+
+
+@pytest.mark.parametrize("variant", ["entry", "tile"])
+def test_bsr_ewise_kernel_failure_raises_through_core(variant, monkeypatch):
+    """Through ``core.bsr._ewise``: a variant that fails to launch or to
+    load raises KernelError, and nothing else answers."""
+    from repro_torch.kernels import KernelError, build
+    rng = np.random.default_rng(32)
+    A, B = _ewise_handles(rng, 32)
+    attr = "_bound_entry" if variant == "entry" else "_bound"
+    monkeypatch.setattr(bsr_ewise, "entry_max_fill",
+                        lambda b: 1.01 if variant == "entry" else 0.0)
+    before = (bsr_ewise.launches, bsr_ewise.launches_entry,
+              bsr_ewise.launches_tile)
+    monkeypatch.setattr(bsr_ewise, attr, lambda *a: 700)
+    with pytest.raises(KernelError):
+        bsr_mod.ewise_mult(A, B, S.ewise("times"))
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bsr_ewise, attr, None)
+    with pytest.raises(KernelError):
+        bsr_mod.select_stored(A, S.ewise("gt", 0.0))
+    assert (bsr_ewise.launches, bsr_ewise.launches_entry,
+            bsr_ewise.launches_tile) == before
 
 
 def _analytics_graph(scale, device):
