@@ -28,7 +28,12 @@ Phases, each printing one JSON line:
             product, that call's time; for ``bsr_spgemm`` also the
             entry-form build, the dispatch, the host plan and the whole
             SpGEMM as the path calls it, for ``bsr_ewise`` the payload
-            forms' build and the whole op as the path calls it
+            forms' build and the whole op as the path calls it; for the
+            two word kernels also their work plans (items, the longest
+            row or the hub panel's slots), the frontier bytes gathered
+            from L2, the device memory once the forms and plans are
+            built, the time per call issued back to back (``loop_ms``)
+            and the time before their redesign (``earlier_ms``)
   fill_sweep  both variants of ``bsr_spgemm``, ``bsr_mxm`` and
             ``bsr_ewise`` at each tile side 16-128 from 0.2% to 100% fill:
             where the entry kernel stops winning (each kernel's crossover
@@ -95,6 +100,11 @@ SWEEP_FILLS = (0.002, 0.01, 0.02, 0.035, 0.05, 0.07, 0.10, 0.15, 0.25,
                0.50, 1.0)
 CLUSTER_COMMUNITIES = 256
 CLUSTER_D_IN = (4, 8, 16, 32, 64)
+# the word kernels' times before their redesign (each thread or block
+# walking a whole row or panel): the range of their chip_smoke.py runs on
+# an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6
+EARLIER_MS = {"ell_mxv_packed": [0.476, 0.519],
+              "bitadj_mxv_packed": [1.002, 1.068]}
 
 
 def check(ok, what):
@@ -138,6 +148,21 @@ def time_ms(torch, fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def loop_ms(torch, fn, reps=50):
+    """Milliseconds per call over ``reps`` calls issued back to back
+    between two CUDA events: the device's time once the host runs ahead
+    (``time_ms`` also holds the host's launch time of a short call)."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def wall_ms(torch, fn, reps=3):
@@ -249,6 +274,7 @@ def main() -> int:
                    deg=store.max_deg, W=w, equal=True, max_abs_err=err)
         if timed:
             n, k, deg = store.shape[0], store.shape[1], store.max_deg
+            plan = store.item_plan()          # built by the call above
             # the data's need: each row's valid ids and the sentinel that
             # ends the row (rows are valid-first), the frontier and the
             # output; one OR per edge and word
@@ -258,11 +284,18 @@ def main() -> int:
             row.update(
                 kernel_ms=time_ms(torch,
                                   lambda: bitmap_mxv.ell_mxv_packed(store, xw)),
+                loop_ms=loop_ms(torch,
+                                lambda: bitmap_mxv.ell_mxv_packed(store, xw)),
                 plain_ms=time_ms(torch,
                                  lambda: ops.ell_mxm_packed(store, xw),
                                  reps=3, warmup=0),
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                ids_read=ids, padded_id_bytes=n * deg * 4, library_ms=None)
+                ids_read=ids, padded_id_bytes=n * deg * 4, library_ms=None,
+                items=plan.items, ids_per_item=plan.L,
+                split_rows=plan.split_rows, longest_row=plan.longest_row,
+                l2_gather_bytes=store.nnz * w * 4,
+                memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                earlier_ms=EARLIER_MS["ell_mxv_packed"])
         emit_phase(**row)
         return row
 
@@ -279,6 +312,7 @@ def main() -> int:
                    W=w, equal=True, max_abs_err=err)
         if timed:
             n, k = store.shape
+            plan = store.slot_plan()          # built by the call above
             occ = (store.cols < store.n_ctiles).sum(dim=1)
             occupied = int(occ.sum())
             # the data's need: each panel's occupied slot ids and the
@@ -291,12 +325,19 @@ def main() -> int:
             row.update(
                 kernel_ms=time_ms(
                     torch, lambda: bitadj_mxv.bitadj_mxv_packed(store, xw)),
+                loop_ms=loop_ms(
+                    torch, lambda: bitadj_mxv.bitadj_mxv_packed(store, xw)),
                 plain_ms=time_ms(torch, lambda: bitadj.mxm_words(store, xw),
                                  reps=3, warmup=0),
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                 occupied_slots=occupied, ids_read=ids,
                 padded_tile_bytes=P * S_ * 32 * 4,
-                library_ms=None)
+                library_ms=None, items=int(plan.items.shape[0]),
+                slots_per_item=plan.K, split_panels=plan.split_panels,
+                hub_slots=plan.hub_slots,
+                l2_gather_bytes=store.nnz * w * 4,
+                memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                earlier_ms=EARLIER_MS["bitadj_mxv_packed"])
         emit_phase(**row)
         return row
 

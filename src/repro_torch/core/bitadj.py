@@ -14,7 +14,8 @@ the slot order and the sentinel are the JAX package's; words hold the
 uint32 bit pattern in int32 storage (see ``core.bitmap``).
 
 The or_and product against a packed frontier is ``panels_mxm_words`` — the
-plain version of the hand-written CUDA kernel ``kernels.bitadj_mxv``.
+plain version of the hand-written CUDA kernel ``kernels.bitadj_mxv``, which
+reads the occupied slots through a ``SlotPlan`` (``BitELL.slot_plan``).
 Weighted semirings take the cached materialize-to-ELL fallback
 (``to_ell``), as in the JAX package.
 """
@@ -61,6 +62,54 @@ def auto_bitadj_ok(rows, cols, vals, shape) -> bool:
     fill, slots = _tile_stats(rows, cols, shape)
     return fill >= AUTO_BITADJ_MIN_FILL and slots <= AUTO_BITADJ_MAX_SLOTS
 
+# occupied slots per work item of the packed kernel (``BitELL.slot_plan``):
+# 32 and 64 tie at the Graph500 scale-18 path shape and 128 or more is
+# slower (tools/word_kernels.py --sweep on an H100); 64 splits fewer panels
+ITEM_SLOTS = 64
+
+
+@dataclasses.dataclass
+class SlotPlan:
+    """The packed kernel's work over ``occupied_first()`` storage: item i
+    is ``items[i] = (panel, s0, s1, split)``, the panel's occupied slots
+    ``[s0, s1)``. A panel of m occupied slots takes ``max(1, ceil(m / K))``
+    items of near-equal ranges, so a hub panel is spread over many items
+    and a panel with no occupied slot still has one (an empty range, whose
+    rows it writes as 0). The rows of a split panel (more than one item)
+    are OR-merged into the output, so they are zeroed first:
+    ``zero_rows``."""
+    K: int
+    items: torch.Tensor       # (I, 4) int32: panel, s0, s1, split (0 / 1)
+    zero_rows: torch.Tensor   # (z,) int32: every row < n of a split panel
+    split_panels: int
+    hub_slots: int            # the most occupied slots of one panel
+
+
+def slot_plan(cols: torch.Tensor, n_rows: int, n_ctiles: int,
+              K: int = ITEM_SLOTS) -> SlotPlan:
+    """Split the occupied slots of occupied-first ``cols`` (P, S) into
+    items of at most K (``SlotPlan``), on their device with no host
+    loop."""
+    if K < 1:
+        raise ValueError(f"slot_plan: K must be positive, got {K}")
+    dev = cols.device
+    P = cols.shape[0]
+    occ = (cols < n_ctiles).sum(dim=1)                 # (P,) occupied
+    m = torch.clamp((occ + K - 1) // K, min=1)         # items per panel
+    panel = torch.repeat_interleave(torch.arange(P, device=dev), m)
+    first = torch.cumsum(m, dim=0) - m
+    j = torch.arange(panel.shape[0], device=dev) - first[panel]
+    mp, op = m[panel], occ[panel]
+    split = m > 1
+    items = torch.stack([panel, j * op // mp, (j + 1) * op // mp,
+                         split[panel].long()], dim=1)
+    sp = torch.nonzero(split).flatten()
+    rows = (sp[:, None] * TILE + torch.arange(TILE, device=dev)).flatten()
+    return SlotPlan(K=K, items=items.to(torch.int32).contiguous(),
+                    zero_rows=rows[rows < n_rows].to(torch.int32).contiguous(),
+                    split_panels=int(sp.shape[0]),
+                    hub_slots=int(occ.max()) if P else 0)
+
 
 @dataclasses.dataclass
 class BitELL:
@@ -74,6 +123,9 @@ class BitELL:
     # (tiles, cols) with each panel's occupied slots first: the kernel's
     # operands, cached per matrix
     _slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # the packed kernel's slot plan over occupied_first()
+    _plan: Optional[SlotPlan] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @property
@@ -150,6 +202,14 @@ class BitELL:
                     1, order[:, :, None].expand(-1, -1, TILE))
             self._slots = (tiles.contiguous(), cols.contiguous())
         return self._slots
+
+    def slot_plan(self) -> SlotPlan:
+        """``slot_plan`` of ``occupied_first()``'s cols: items of at most
+        ``ITEM_SLOTS`` slots. Built once, on the device."""
+        if self._plan is None:
+            self._plan = slot_plan(self.occupied_first()[1], self.shape[0],
+                                   self.n_ctiles)
+        return self._plan
 
     def to_coo(self):
         """Host-side COO of the stored structure (vals are unit weights);

@@ -6,16 +6,89 @@ the same slot order as the JAX package, so both packages hold identical
 ``indices`` / ``mask`` / ``values`` arrays for one edge list.
 
 The tensors live on one ``device``; construction runs in numpy on the host
-and copies once. ``sentinel_indices`` caches the kernel's spelling of the
-structure (valid slots first, then the sentinel k), built once per matrix.
+and copies once. Two cached forms serve the packed kernel
+(``kernels.bitmap_mxv``), each built once per matrix on its device:
+``row_csr`` (the valid ids as one CSR over the rows) and ``item_plan``
+(its split into work items of at most L ids). ``sentinel_indices`` (valid
+slots first, then the sentinel k) is the padded spelling of the same
+order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+# ids per work item of the packed kernel (``ELL.item_plan``): 32 to 512
+# lie within the run-to-run spread at the Graph500 scale-16 path shape
+# (tools/word_kernels.py --sweep on an H100)
+ITEM_IDS = 128
+# the plan's per-edge word: the row in the low 30 bits, then two flags
+ROW_BITS = 30
+FIRST_EDGE = 1 << 30        # the edge opens its row
+LAST_EDGE = 1 << 31         # the edge closes its row
+
+
+class RowCSR(NamedTuple):
+    """The valid ids as one CSR over the rows: row i holds
+    ``ids[row_ptr[i]:row_ptr[i + 1]]`` in the valid-first order of
+    ``ELL.sentinel_indices``."""
+    row_ptr: torch.Tensor   # (n + 1,) int64
+    ids: torch.Tensor       # (nnz,) int32
+
+
+@dataclasses.dataclass
+class ItemPlan:
+    """The packed kernel's work: item i takes the ids ``[i * L, min((i +
+    1) * L, nnz))`` of the CSR, so every item holds L ids but the last, a
+    hub row is split over several items and short rows share one.
+
+    ``edge_rows`` holds, per id, its row with ``FIRST_EDGE`` / ``LAST_EDGE``
+    set where the id opens / closes the row (int32 bit pattern), so an item
+    finds its rows without the row pointers. A row cut by an item boundary
+    is OR-merged into the output, so it is zeroed first, as are the empty
+    rows, which no item reaches: ``zero_rows``."""
+    L: int
+    items: int
+    edge_rows: torch.Tensor   # (nnz,) int32
+    zero_rows: torch.Tensor   # (z,) int32: the split rows, then the empty
+    split_rows: int           # the first split_rows of zero_rows
+    longest_row: int
+
+
+def item_plan(csr: RowCSR, L: int = ITEM_IDS) -> ItemPlan:
+    """Split a RowCSR into items of L ids (``ItemPlan``), on its device
+    with no host loop."""
+    if L < 1:
+        raise ValueError(f"item_plan: L must be positive, got {L}")
+    row_ptr = csr.row_ptr
+    n = row_ptr.shape[0] - 1
+    if n >= 1 << ROW_BITS:
+        raise ValueError(f"item_plan: {n} rows do not fit {ROW_BITS} bits")
+    dev = row_ptr.device
+    nnz = int(csr.ids.shape[0])
+    deg = row_ptr.diff()
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    erow = torch.repeat_interleave(rows, deg)
+    full = deg > 0
+    word = erow.clone()
+    word[row_ptr[:-1][full]] |= FIRST_EDGE
+    word[row_ptr[1:][full] - 1] |= LAST_EDGE
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+    # a boundary b splits the row of id b when id b - 1 lies in it too
+    items = -(-nnz // L)
+    bounds = torch.arange(1, max(items, 1), dtype=torch.int64, device=dev) * L
+    cut = bounds[erow[bounds] == erow[bounds - 1]]
+    split = torch.unique(erow[cut])
+    empty = rows[~full]
+    return ItemPlan(L=L, items=items,
+                    edge_rows=word.to(torch.int32).contiguous(),
+                    zero_rows=torch.cat([split, empty]).to(
+                        torch.int32).contiguous(),
+                    split_rows=int(split.shape[0]),
+                    longest_row=int(deg.max()) if n else 0)
 
 
 @dataclasses.dataclass
@@ -25,8 +98,13 @@ class ELL:
     mask: torch.Tensor     # (n, max_deg) bool validity
     values: torch.Tensor   # (n, max_deg) float32 edge weights (1.0 structural)
     nnz: int
-    # valid ids first, then k: the packed kernel's operand, cached per matrix
+    # valid ids first, then k: the padded spelling, cached per matrix
     _sentinel: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # the packed kernel's operands: the CSR and its work plan
+    _csr: Optional[RowCSR] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _plan: Optional[ItemPlan] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @property
@@ -92,6 +170,26 @@ class ELL:
                 idx = idx.gather(1, order)
             self._sentinel = idx.contiguous()
         return self._sentinel
+
+    def row_csr(self) -> RowCSR:
+        """The valid ids as one CSR over the rows, each row in the
+        valid-first order of ``sentinel_indices`` (its valid slots in slot
+        order), without the padded copy. Built once, on the device."""
+        if self._csr is None:
+            m = self.mask
+            row_ptr = torch.zeros(self.shape[0] + 1, dtype=torch.int64,
+                                  device=self.device)
+            row_ptr[1:] = torch.cumsum(m.sum(dim=1), dim=0)
+            self._csr = RowCSR(row_ptr=row_ptr,
+                               ids=self.indices[m].to(torch.int32))
+        return self._csr
+
+    def item_plan(self) -> ItemPlan:
+        """``item_plan(self.row_csr())``: items of ``ITEM_IDS`` ids. Built
+        once, on the device."""
+        if self._plan is None:
+            self._plan = item_plan(self.row_csr())
+        return self._plan
 
     def to_coo(self):
         """Host-side COO extraction (rows, cols, vals as numpy); the

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.core import bitadj, ops
-from repro_torch.core import bsr as bsr_mod, semiring as S
+from repro_torch.core import bsr as bsr_mod, ell as ell_mod, semiring as S
 from repro_torch.core.bitadj import BitELL
 from repro_torch.core.bsr import BSR
 from repro_torch.core.ell import ELL
@@ -169,6 +169,98 @@ def test_kernels_match_plain_on_unordered_slots(n, k, w):
     torch.cuda.synchronize()
     assert torch.equal(got_e, ops.ell_mxm_packed(e, xw))
     assert torch.equal(got_b, bitadj.mxm_words(b, xw))
+
+
+# -- the edge-balanced word kernels on adversarial shapes ---------------------
+# n = 1000 is not a multiple of 32. ELL: rows of exactly 256 ids between
+# empty rows put empty rows on item boundaries, then a hub row of 20,000
+# ids and random rows. BitELL: panel 0 reaches 4,200 column tiles (a hub
+# panel of more than 4K occupied slots), other panels one, and k is not a
+# multiple of 32, so the frontier has fewer rows than C*32.
+WORD_WIDTHS = [1, 3, 16, 17, 300]
+
+
+def _adversarial_coo(rng, n, k):
+    blocks = [(r, rng.choice(k, 256, replace=False)) for r in (1, 3, 5)]
+    blocks.append((6, rng.choice(k, 20_000, replace=False)))
+    r = rng.integers(8, n, size=4 * n)
+    c = rng.integers(0, k, size=4 * n)
+    rows = np.concatenate([np.full(len(ids), row) for row, ids in blocks]
+                          + [r])
+    cols = np.concatenate([ids for _, ids in blocks] + [c])
+    keep = ~np.isin(rows, [500, 501, 999])
+    return rows[keep], cols[keep]
+
+
+@pytest.mark.parametrize("w", WORD_WIDTHS)
+def test_ell_items_kernel_on_adversarial_shapes(w):
+    rng = np.random.default_rng(w)
+    n, k = 1000, 30_001
+    r, c = _adversarial_coo(rng, n, k)
+    A = ELL.from_coo(r, c, None, (n, k), device="cuda")
+    xw = _words(rng, k, w)
+    want = ops.ell_mxm_packed(A, xw)
+    before = bitmap_mxv.launches
+    got = bitmap_mxv.ell_mxv_packed(A, xw)
+    torch.cuda.synchronize()
+    assert bitmap_mxv.launches == before + 1
+    assert torch.equal(got, want)
+    csr = A.row_csr()
+    starts = csr.row_ptr[:-1][csr.row_ptr.diff() == 0]
+    assert bool((starts % A.item_plan().L == 0).any())  # empty on a boundary
+    for L in (1, 5, 256, 4096):
+        got = bitmap_mxv.ell_mxv_items(csr, ell_mod.item_plan(csr, L), xw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), L
+
+
+@pytest.mark.parametrize("w", WORD_WIDTHS)
+def test_bitadj_items_kernel_on_adversarial_shapes(w):
+    rng = np.random.default_rng(100 + w)
+    n, k = 1000, 4200 * 32 - 7
+    hub_c = np.minimum(np.arange(4200)[:, None] * 32
+                       + rng.integers(0, 32, size=(4200, 2)), k - 1).ravel()
+    hub_r = rng.integers(0, 32, size=hub_c.shape[0])
+    r = rng.integers(32, n, size=4 * n)
+    c = (r // 32) * 32 + rng.integers(0, 32, size=4 * n)
+    rows, cols = np.concatenate([hub_r, r]), np.concatenate([hub_c, c])
+    keep = ~np.isin(rows // 32, [5, 6])             # two empty panels
+    A = BitELL.from_coo(rows[keep], cols[keep], None, (n, k), device="cuda")
+    plan = A.slot_plan()
+    assert plan.hub_slots > 4096 and plan.split_panels >= 1
+    for xrows in (k, k - 1000):                     # fewer rows than C*32
+        xw = _words(rng, xrows, w)
+        want = bitadj.mxm_words(A, xw)
+        before = bitadj_mxv.launches
+        got = bitadj_mxv.bitadj_mxv_packed(A, xw)
+        torch.cuda.synchronize()
+        assert bitadj_mxv.launches == before + 1
+        assert torch.equal(got, want)
+        tiles, cols_ = A.occupied_first()
+        for K in (1, 3, 64, 8192):
+            plan = bitadj.slot_plan(cols_, n, A.n_ctiles, K)
+            got = bitadj_mxv.bitadj_mxv_items(tiles, cols_, plan, xw,
+                                              A.shape)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), K
+
+
+def test_word_plans_on_cuda_equal_cpu():
+    rng = np.random.default_rng(5)
+    r, c = _adversarial_coo(rng, 1000, 30_001)
+    for kind in (ELL, BitELL):
+        on = kind.from_coo(r, c, None, (1000, 30_001), device="cuda")
+        off = kind.from_coo(r, c, None, (1000, 30_001), device="cpu")
+        if kind is ELL:
+            for a, b in zip(on.row_csr(), off.row_csr()):
+                assert torch.equal(a.cpu(), b)
+            pa, pb = on.item_plan(), off.item_plan()
+            pairs = [(pa.edge_rows, pb.edge_rows), (pa.zero_rows, pb.zero_rows)]
+        else:
+            pa, pb = on.slot_plan(), off.slot_plan()
+            pairs = [(pa.items, pb.items), (pa.zero_rows, pb.zero_rows)]
+        for a, b in pairs:
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("fmt", ["ell", "bitadj"])
