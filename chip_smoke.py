@@ -73,6 +73,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -92,6 +93,17 @@ DEVICE = "cuda"                # where every graph and operand lives
 ANALYTICS_SCALE = 15           # the HPEC Graph Challenge's graph500 inputs
                                # start at 18; cut to what one run can peel
 SIM_SOURCES = 64
+# the algorithm cells: R-MAT scale, sources of each seeded call; label
+# propagation runs at scale 14, cut from 16, where its host loop builds
+# 584 one-hot chunks of 65,536 x 256 (136 at scale 14)
+ALGO_SCALE = 16
+ALGO_SOURCES = 512
+SSSP_SOURCES = 64
+BETWEENNESS_SOURCES = 128
+LABELPROP_SCALE = 14
+LABEL_CHUNK = 256              # labels a CDLP vote chunk (its F)
+WCC_BITADJ_SCALE = 18
+WCC_BATCH = 128                # seeds a WCC closure takes (wcc's batch)
 # the fill sweeps: an n x n matrix at each tile side and fill, frontiers
 # of SWEEP_F columns; the planted-partition graph's communities and degrees
 SWEEP_N = 8192
@@ -198,6 +210,7 @@ def main() -> int:
     from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_ewise,
                                      bsr_mxm, bsr_spgemm, build)
     from repro_torch.engine.server import MAX_WIDTH
+    from repro_torch.query import execute
     from repro_torch.query.executor import ExecutionContext
     from repro_torch.query.parser import parse
     from repro_torch.query.planner import plan
@@ -295,7 +308,8 @@ def main() -> int:
                 split_rows=plan.split_rows, longest_row=plan.longest_row,
                 l2_gather_bytes=store.nnz * w * 4,
                 memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
-                earlier_ms=EARLIER_MS["ell_mxv_packed"])
+                earlier_ms=EARLIER_MS["ell_mxv_packed"] if w == 16
+                else None)
         emit_phase(**row)
         return row
 
@@ -337,18 +351,26 @@ def main() -> int:
                 hub_slots=plan.hub_slots,
                 l2_gather_bytes=store.nnz * w * 4,
                 memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
-                earlier_ms=EARLIER_MS["bitadj_mxv_packed"])
+                earlier_ms=EARLIER_MS["bitadj_mxv_packed"] if w == 16
+                else None)
         emit_phase(**row)
         return row
 
     def bsr_mxm_case(store, X, sr, tag, mask=None, complement=False,
-                     timed=False, sweep=False):
+                     timed=False, sweep=False, with_tile=True,
+                     library="values"):
         """Kernel 3 on one input: the entry kernel against the tile kernel
         and each against its plain version, bit for bit (integer weights
         and frontiers keep every sum exact), and the dispatch's pick.
         Timed: both kernels, both plain versions, each one's bound and
         cuSPARSE SpMM (``torch.sparse.mm``) on the handle's CSR. ``sweep``:
-        the two kernels alone, checked against each other."""
+        the two kernels alone, checked against each other.
+        ``with_tile=False``: the entry kernel and its plain version only
+        (the tile kernel's b * b * F a tile would take seconds a call at
+        the shape).
+        ``library``: SpMM over the handle's "values", over its "pattern"
+        (ones: the plus_pair count), or None (no PyTorch call computes a
+        min-plus product)."""
         csr = store.row_csr()
 
         def entry():
@@ -371,21 +393,28 @@ def main() -> int:
         got_d = bsr_mxm.bsr_mxm(store, X, sr, mask=mask,
                                 complement=complement)
         picked = bsr_mxm.picked
-        got_e, got_t = entry(), tile()
+        got_e = entry()
+        if with_tile:
+            got_t = tile()
+            torch.cuda.synchronize()
+            check(torch.equal(got_e, got_t),
+                  f"bsr_mxm entry == tile ({tag}, {sr.name})")
+            del got_t
         torch.cuda.synchronize()
-        check(torch.equal(got_e, got_t),
-              f"bsr_mxm entry == tile ({tag}, {sr.name})")
         check(torch.equal(got_d, got_e),
               f"bsr_mxm dispatch ({picked}) == kernels ({tag}, {sr.name})")
         err = 0.0
         if not sweep:
-            for what, want in (("entry", plain_entry()),
-                               ("tile", plain_tile())):
+            plains = [("entry", plain_entry)] + ([("tile", plain_tile)]
+                                                 if with_tile else [])
+            for what, plain_fn in plains:
+                want = plain_fn()
                 torch.cuda.synchronize()
                 check(torch.equal(got_e, want),
                       f"bsr_mxm {what} == plain ({tag}, {sr.name})")
                 err = max(err, abs_err(got_e, want))
-        del got_d, got_t
+                del want
+        del got_d
         n, m = store.shape
         F = X.shape[1]
         b = store.block
@@ -393,7 +422,8 @@ def main() -> int:
                    semiring=sr.name, masked=mask is not None,
                    complement=complement, n=n, m=m, F=F, block=b,
                    fill=store.fill_ratio, picked=picked, equal=True,
-                   entry_equals_tile=True, max_abs_err=err)
+                   entry_equals_tile=True if with_tile else None,
+                   max_abs_err=err)
         if timed or sweep:
             # what each kernel must move: the frontier, the mask and the
             # output once, and its form of A: the row CSR (row pointer,
@@ -411,7 +441,8 @@ def main() -> int:
             row.update(
                 entry_ms=time_ms(torch, entry),
                 tile_ms=time_ms(torch, tile, reps=3 if slow else 10,
-                                warmup=1 if slow else 2),
+                                warmup=1 if slow else 2)
+                if with_tile else None,
                 entry_bound_ms=e_bound[0], entry_bound_by=e_bound[1],
                 entry_bytes=e_bytes, tile_bound_ms=t_bound[0],
                 tile_bound_by=t_bound[1], tile_bytes=t_bytes,
@@ -422,9 +453,15 @@ def main() -> int:
         if timed:
             row.update(
                 plain_ms=time_ms(torch, plain_entry, reps=3, warmup=1),
-                plain_tile_ms=time_ms(torch, plain_tile, reps=2, warmup=0))
-            row["library_ms"], row["library_reason"] = library_spmm(
-                torch, csr, store.shape, X)
+                plain_tile_ms=time_ms(torch, plain_tile, reps=2, warmup=0)
+                if with_tile else None)
+            if library is None:
+                row["library_ms"], row["library_reason"] = None, (
+                    "no PyTorch call computes a min-plus (tropical) product "
+                    "of a sparse matrix and a dense one")
+            else:
+                row["library_ms"], row["library_reason"] = library_spmm(
+                    torch, csr, store.shape, X, pattern=library == "pattern")
             on_path = "entry" if picked == "entry" else "tile"
             row.update(kernel_ms=row[f"{on_path}_ms"],
                        bound_ms=row[f"{on_path}_bound_ms"],
@@ -1060,7 +1097,7 @@ def main() -> int:
     kern["bitadj_mxv_packed"] = bitadj_case(
         A.T.store, 16, "scale-18 transpose handle W=16 (the path's)",
         timed=True)
-    out_deg = bitadj_out_degree(torch, A.store)
+    out_deg = grb.reduce(A, S.PLUS, axis=1).cpu().numpy()
     seeds = np.random.default_rng(18).choice(
         np.nonzero(out_deg >= 1)[0], QUERIES, replace=False)
     t23 = "MATCH (a)-[:KNOWS*2..3]->(b) RETURN count(DISTINCT b)"
@@ -1369,7 +1406,31 @@ def main() -> int:
                max_rel_err_sources=err_src,
                max_rel_err_sources_vs_matrix=mat_vs_src,
                compared_on_pattern=int(on.sum()), launches=launched)
-    del J, Ssrc, M, want_s, got_s
+
+    # the same two through CALL algo.*: one triangle row, and a row
+    # (source, node, score) for each score above 0 of the source columns
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_t = execute(g, "CALL algo.triangles(rel: KNOWS)")
+    t1 = time.perf_counter()
+    ids = ", ".join(str(int(s_)) for s_ in sources)
+    res_s = execute(g, f"CALL algo.similarity(rel: KNOWS, sources: [{ids}]) "
+                       f"YIELD node1, node2, score")
+    t2 = time.perf_counter()
+    launched = read_launches({"bsr_spgemm": 1, "bsr_mxm": 1})
+    check(res_t.error is None and res_t.rows == [(tri,)],
+          f"CALL algo.triangles: {res_t.rows[:1]} {res_t.error}, direct {tri}")
+    want_rows = sorted((int(s_), int(i), float(got_s[i, j]))
+                       for j, s_ in enumerate(sources)
+                       for i in np.nonzero(got_s[:, j] > 0)[0])
+    check(res_s.error is None and res_s.rows == want_rows,
+          f"CALL algo.similarity: {len(res_s.rows)} rows, the direct call's "
+          f"{len(want_rows)}, equal: {res_s.rows == want_rows}")
+    emit_phase(phase="call_analytics", card=card, triangles_ms=1e3 * (t1 - t0),
+               similarity_ms=1e3 * (t2 - t1), similarity_rows=len(want_rows),
+               equal_to_direct=True, launches=launched)
+    del J, Ssrc, M, want_s, got_s, res_s, want_rows
 
     # kernel 5 at the path's shapes: round 1's support (C<A> = A x A, the
     # same product triangle_count and similarity_matrix take), the
@@ -1408,6 +1469,16 @@ def main() -> int:
                "values of a sparse tensor by a predicate or a mask pattern")
     del g, rel, A, T, C1, recip, Asp, sup, truss_want
     release()
+
+    # -- the remaining algorithms and CALL algo.* -----------------------------
+    h = types.SimpleNamespace(
+        card=card, emit_phase=emit_phase, zero_launches=zero_launches,
+        launches_now=launches_now, variant_launches=variant_launches,
+        path=path, bsr_mxm_case=bsr_mxm_case, ell_case=ell_case,
+        bitadj_case=bitadj_case, frontier=frontier, release=release)
+    algo_shapes, algo_words, word_shapes = algorithm_cells(torch, h)
+    for k, v in algo_words.items():
+        kern[k]["launches"] += v
 
     # -- the kernels line, the card, the result --------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1462,7 +1533,21 @@ def main() -> int:
     line[2]["hop_matrix"] = {k: hop_row[k] for k in (
         "picked", "fill", "entry_ms", "tile_ms", "entry_bound_ms",
         "tile_bound_ms", "library_ms")}
+    # the word kernels at the widths of the WCC closure batches
+    for entry in line[:2]:
+        entry["algorithm_shapes"] = {
+            name: {k: r_[k] for k in (
+                "shape", "W", "equal", "max_abs_err", "kernel_ms",
+                "bound_ms", "bound_by", "plain_ms", "library_ms")}
+            for name, r_ in word_shapes[entry["name"]].items()}
     sp = kern["bsr_spgemm"]
+    # the algorithms' shapes of the entry kernel
+    line[2]["algorithm_shapes"] = {
+        name: {k: r_[k] for k in (
+            "shape", "semiring", "F", "picked", "equal", "entry_ms",
+            "entry_bound_ms", "entry_bound_by", "plain_ms", "library_ms",
+            "library_reason")}
+        for name, r_ in algo_shapes.items()}
     line[4].update(entry_form_ms=sp["entry_form_ms"],
                    dispatch_ms=sp["dispatch_ms"], plan_ms=sp["plan_ms"],
                    spgemm_ms=sp["spgemm_ms"], triangle_shape={
@@ -1494,14 +1579,384 @@ def main() -> int:
     return 0
 
 
-def bitadj_out_degree(torch, store):
-    """Per-row edge counts straight off the bit-tiles (SWAR popcount), 256
-    panels at a time: the popcount works in int64, and over all 6.2 GB of
-    scale-18 tiles at once its temporaries took the device to 75 GB."""
-    from repro_torch.core import bitmap
-    per = torch.cat([bitmap.popcount(store.tiles[lo:lo + 256]).sum(dim=1)
-                     for lo in range(0, store.tiles.shape[0], 256)])
-    return per.reshape(-1)[:store.shape[0]].cpu().numpy()
+def algorithm_cells(torch, h):
+    """The remaining algorithms and ``CALL algo.*`` on the card, each
+    phase driven once with the launch counts at 0 and held against an
+    oracle that does not use the port (scipy / numpy, from the generator's
+    edges with repeated edges combined as ``GraphBuilder`` combines them:
+    the first one's weight), then the closeness CALL served through
+    ``QueryServer``; in between, ``bsr_mxm``'s entry kernel at the
+    algorithms' shapes (``h.bsr_mxm_case``), and before each WCC the word
+    kernel at the widths of its closure batches (``h.ell_case`` /
+    ``h.bitadj_case``). ``h`` carries main's helpers and the path's launch
+    totals. Returns ``bsr_mxm``'s rows by shape, the word kernels' launches
+    and the word kernels' rows by shape."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from repro_torch import algorithms as algo
+    from repro_torch.core import semiring as S
+    from repro_torch.engine import QueryServer
+    from repro_torch.engine.server import MAX_WIDTH
+    from repro_torch.graph.datagen import rmat_edges, rmat_graph
+    from repro_torch.graph.graph import GraphBuilder
+    from repro_torch.query import execute
+
+    words = {"ell_mxv_packed": 0, "bitadj_mxv_packed": 0}
+    shapes = {}
+    word_shapes = {k: {} for k in words}
+    card = h.card
+
+    def counted(tag, fn, needs):
+        """``fn()`` once with the launch counts at 0: (its result, seconds,
+        launches). Each kernel of ``needs`` must launch, a BSR kernel only
+        its entry variant (Graph500 tiles); the launches join the path's."""
+        h.zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got, var = h.launches_now(), h.variant_launches()
+        for k in needs:
+            check(got[k] > 0, f"{tag}: {k} never launched")
+        for k in ("bsr_mxm", "bsr_spgemm", "bsr_ewise"):
+            check(var[k + "_tile"] == 0,
+                  f"{tag}: {k} took {var[k + '_tile']} tile launches; the "
+                  f"entry kernel is the path's")
+        for k in h.path:
+            h.path[k] += var[k]
+        for k in words:
+            words[k] += got[k]
+        return out, dt, {k: v for k, v in got.items() if v}
+
+    def on_card(t, tag):
+        check(t.device.type == torch.device(DEVICE).type,
+              f"{tag}: answer on {t.device}, not on {DEVICE}")
+        return t.cpu().numpy()
+
+    def stored(src, dst, n, w=None):
+        """The entries GraphBuilder stores, scipy CSR: of repeated (row,
+        col) edges the first."""
+        _, first = np.unique(src * n + dst, return_index=True)
+        vals = np.ones(len(first)) if w is None else w[first]
+        return sp.csr_matrix((vals, (src[first], dst[first])), shape=(n, n))
+
+    def min_label(W):
+        """Weak components, each labelled with its smallest vertex id."""
+        n = W.shape[0]
+        _, comp = csgraph.connected_components(W, directed=True,
+                                               connection="weak")
+        low = np.full(comp.max() + 1, n)
+        np.minimum.at(low, comp, np.arange(n))
+        return low[comp]
+
+    def sources(W, k, seed):
+        deg = np.diff(W.indptr)
+        return np.sort(np.random.default_rng(seed).choice(
+            np.nonzero(deg >= 1)[0], k, replace=False))
+
+    def call_column(res, col=1):
+        check(res.error is None, f"CALL error {res.error}")
+        return np.array([r[col] for r in res.rows])
+
+    def closure_widths(W):
+        """The frontier words of each WCC closure batch, from scipy's
+        components: after the vertices with no stored entry, batches of the
+        WCC_BATCH smallest unlabelled ids, each labelling its seeds' whole
+        components."""
+        _, comp = csgraph.connected_components(W, directed=True,
+                                               connection="weak")
+        done = (np.diff(W.indptr) == 0) & (np.diff(W.tocsc().indptr) == 0)
+        widths = []
+        while not done.all():
+            batch = np.flatnonzero(~done)[:WCC_BATCH]
+            widths.append(-(-len(batch) // 32))
+            done |= np.isin(comp, comp[batch])
+        return widths
+
+    def wcc_phase(g, W, fmt, kernel):
+        # the word kernel at each width a closure batch gives it, on both
+        # handles (a closure hops both directions), against its plain
+        # version bit for bit
+        case = h.ell_case if fmt == "ell" else h.bitadj_case
+        A = g.relations["KNOWS"].A
+        widths = closure_widths(W)
+        for w in sorted(set(widths), reverse=True):
+            for side, store in (("forward", A.store),
+                                ("transpose", A.T.store)):
+                word_shapes[kernel][f"{fmt} {side} W={w}"] = case(
+                    store, w, f"scale-{g.n.bit_length() - 1} {side} handle "
+                    f"W={w} (a WCC closure batch)", timed=True)
+        t0 = time.perf_counter()
+        want = min_label(W)
+        oracle_s = time.perf_counter() - t0
+        res, dt, launched = counted(f"algo_wcc {fmt}", lambda: execute(
+            g, "CALL algo.wcc(rel: KNOWS)"), [kernel])
+        got = call_column(res)
+        check(np.array_equal(got, want), f"algo_wcc {fmt}: labels differ "
+              f"from scipy's at {int((got != want).sum())} vertices")
+        sizes = np.bincount(want)
+        h.emit_phase(phase="algo_wcc", card=card, fmt=fmt, n=g.n,
+                     nnz=g.relations["KNOWS"].nnz, seconds=dt,
+                     components=int((sizes > 0).sum()),
+                     nontrivial=int((sizes > 1).sum()),
+                     giant=int(sizes.max()), launches=launched,
+                     batch_words=widths, oracle_s=oracle_s, exact=True)
+
+    def serve_closeness(g, W, fmt, kernel):
+        """QUERIES seeded closeness CALLs through the server: they coalesce
+        into MAX_WIDTH-column sweeps; CHECKED answers against scipy's
+        levels through the Wasserman-Faust formula in float32, exactly."""
+        n = g.n
+        text = "CALL algo.closeness(rel: KNOWS) YIELD node, score"
+        seeds = sources(W, QUERIES, 3 + g.n)
+        srv = QueryServer(g)
+        for s in seeds[:32]:
+            srv.submit(text, seeds=[int(s)])
+        check(all(r.error is None for r in srv.flush().values()),
+              f"serve_call_closeness_{fmt}: warm-up batch")
+        srv = QueryServer(g)
+
+        def run():
+            t0 = time.perf_counter()
+            qids = [srv.submit(text, seeds=[int(s)]) for s in seeds]
+            return qids, srv.flush(), time.perf_counter() - t0
+
+        (qids, out, dt), _, launched = counted(
+            f"serve_call_closeness_{fmt}", run, [kernel])
+        errors = [out[q].error for q in qids if out[q].error is not None]
+        check(not errors, f"serve_call_closeness_{fmt}: errors {errors[:3]}")
+        check(all(len(out[q].rows) == 1 and out[q].rows[0][0] == s
+                  for q, s in zip(qids, seeds)),
+              f"serve_call_closeness_{fmt}: one row per query, its seed")
+        want_batches = -(-QUERIES // MAX_WIDTH)
+        check(srv.stats["batches"] == want_batches,
+              f"serve_call_closeness_{fmt}: {srv.stats['batches']} batches, "
+              f"expected {want_batches} (the CALLs must coalesce)")
+        pick = np.random.default_rng(7).choice(QUERIES, CHECKED,
+                                               replace=False)
+        t1 = time.perf_counter()
+        L = csgraph.shortest_path(W, unweighted=True, indices=seeds[pick])
+        fin = np.isfinite(L)
+        r = fin.sum(axis=1).astype(np.float32)
+        tot = np.where(fin, L, 0.0).sum(axis=1).astype(np.float32)
+        den = np.float32(n - 1) * np.where(tot > 0, tot, np.float32(1.0))
+        want = np.where(tot > 0, (r - np.float32(1.0))
+                        * (r - np.float32(1.0)) / den, np.float32(0.0))
+        got = np.array([out[qids[i]].rows[0][1] for i in pick],
+                       dtype=np.float32)
+        check(np.array_equal(got, want), f"serve_call_closeness_{fmt}: "
+              f"scores differ from scipy's at {int((got != want).sum())} "
+              f"of {CHECKED}")
+        ref_s = time.perf_counter() - t1
+        lat = np.array([m.latency_s for m in srv.log]) * 1e3
+        h.emit_phase(phase=f"serve_call_closeness_{fmt}", card=card, n=n,
+                     queries=QUERIES, seconds=dt, qps=QUERIES / dt,
+                     p50_ms=float(np.percentile(lat, 50)),
+                     p99_ms=float(np.percentile(lat, 99)),
+                     batches=srv.stats["batches"],
+                     pack_ratio=srv.stats["pack_ratio"], launches=launched,
+                     checked=CHECKED, reference_s=ref_s,
+                     score_mean=float(np.mean([out[q].rows[0][1]
+                                               for q in qids])))
+
+    # -- R-MAT s16: BFS and k-hop levels, on ELL (fmt="auto") and BSR ------
+    src, dst, n = rmat_edges(ALGO_SCALE)
+    W = stored(src, dst, n)
+    seeds = sources(W, ALGO_SOURCES, ALGO_SCALE)
+    t0 = time.perf_counter()
+    L = csgraph.shortest_path(W, unweighted=True, indices=seeds)
+    want_lv = L.T.astype(np.float32)
+    want_k = ((L >= 1) & (L <= 2)).sum(axis=1)
+    bfs_oracle_s = time.perf_counter() - t0
+    del L
+
+    def bfs_phase(g, fmt, kernel):
+        rel = g.relations["KNOWS"]
+        lv, lv_s, lv_l = counted(f"algo_bfs {fmt}", lambda: algo.bfs_levels(
+            rel, seeds), [kernel])
+        kc, kc_s, kc_l = counted(f"algo_bfs {fmt} khop", lambda:
+                                 algo.khop_counts(rel, seeds, 2), [kernel])
+        got = on_card(lv, f"algo_bfs {fmt}")
+        check(np.array_equal(got, want_lv), f"algo_bfs {fmt}: levels differ "
+              f"from scipy's at {int((got != want_lv).sum())} entries")
+        check(np.array_equal(on_card(kc, f"algo_bfs {fmt} khop"), want_k),
+              f"algo_bfs {fmt}: k-hop counts differ from scipy's")
+        fin = np.isfinite(want_lv)
+        h.emit_phase(phase="algo_bfs", card=card, fmt=rel.A.fmt, n=n,
+                     nnz=rel.nnz, sources=ALGO_SOURCES,
+                     bfs_levels_s=lv_s, khop_counts_s=kc_s, k=2,
+                     max_level=float(want_lv[fin].max()),
+                     reached_mean=float(fin.sum(axis=0).mean()),
+                     khop_mean=float(want_k.mean()),
+                     launches={"bfs_levels": lv_l, "khop_counts": kc_l},
+                     oracle_s=bfs_oracle_s, exact=True)
+        del lv, kc, got
+
+    g = rmat_graph(ALGO_SCALE, fmt="auto", device=DEVICE)
+    check(g.relations["KNOWS"].A.fmt == "ell",
+          f"R-MAT s{ALGO_SCALE} fmt='auto' picked "
+          f"{g.relations['KNOWS'].A.fmt}, not ell")
+    bfs_phase(g, "ell", "ell_mxv_packed")
+    wcc_phase(g, W, "ell", "ell_mxv_packed")
+    serve_closeness(g, W, "ell", "ell_mxv_packed")
+    del g
+    h.release()
+
+    g = rmat_graph(ALGO_SCALE, fmt="bsr", device=DEVICE)
+    rel = g.relations["KNOWS"]
+    bfs_phase(g, "bsr", "bsr_mxm")
+    del want_lv
+
+    # PageRank through CALL, against float64 power iteration
+    t0 = time.perf_counter()
+    deg = np.asarray(W.sum(axis=1)).ravel()
+    dangling = deg == 0
+    inv = np.where(dangling, 0.0, 1.0 / np.maximum(deg, 1e-30))
+    WT = W.T.tocsr()
+    pr = np.full(n, 1.0 / n)
+    for _ in range(50):
+        pr = 0.15 / n + 0.85 * (WT @ (pr * inv) + pr[dangling].sum() / n)
+    pr_oracle_s = time.perf_counter() - t0
+    res, dt, launched = counted("algo_pagerank", lambda: execute(
+        g, "CALL algo.pagerank(rel: KNOWS) YIELD node, score"), ["bsr_mxm"])
+    got = call_column(res)
+    l1 = float(np.abs(got - pr).sum())
+    check(l1 <= 1e-5, f"algo_pagerank: L1 distance {l1} from float64")
+    h.emit_phase(phase="algo_pagerank", card=card, fmt="bsr", n=n,
+                 nnz=rel.nnz, iters=50, seconds=dt, l1=l1,
+                 max_abs_err=float(np.abs(got - pr).max()),
+                 sum=float(got.sum()), launches=launched,
+                 oracle_s=pr_oracle_s)
+
+    # Brandes through CALL, 128 seeded sources, against a float64
+    # level-synchronous Brandes in scipy
+    bsrc = sources(W, BETWEENNESS_SOURCES, 128)
+    t0 = time.perf_counter()
+    F = len(bsrc)
+    lv = csgraph.shortest_path(W, unweighted=True, indices=bsrc).T
+    sigma = np.zeros((n, F))
+    sigma[bsrc, np.arange(F)] = 1.0
+    dmax = int(lv[np.isfinite(lv)].max())
+    for d in range(dmax):
+        sigma += np.where(lv == d + 1, WT @ np.where(lv == d, sigma, 0.0),
+                          0.0)
+    delta = np.zeros((n, F))
+    for d in range(dmax, 0, -1):
+        coef = np.where(lv == d, (1.0 + delta) / np.maximum(sigma, 1.0), 0.0)
+        delta += np.where(lv == d - 1, sigma * (W @ coef), 0.0)
+    bc_want = np.where(lv > 0, delta, 0.0).sum(axis=1)
+    bc_oracle_s = time.perf_counter() - t0
+    del lv, sigma, delta, coef
+    text = (f"CALL algo.betweenness(rel: KNOWS, sources: "
+            f"[{', '.join(str(int(s)) for s in bsrc)}]) YIELD node, score")
+    res, dt, launched = counted("algo_betweenness", lambda: execute(g, text),
+                                ["bsr_mxm"])
+    got = call_column(res)
+    big = bc_want > 1.0
+    err = rel_err(got[big], bc_want[big])
+    check(err <= 1e-4, f"algo_betweenness: relative error {err} on scores "
+          f"above 1")
+    h.emit_phase(phase="algo_betweenness", card=card, fmt="bsr", n=n,
+                 sources=F, seconds=dt, levels=dmax,
+                 max_rel_err_above_1=err, scores_above_1=int(big.sum()),
+                 max_abs_err=float(np.abs(got - bc_want).max()),
+                 launches=launched, oracle_s=bc_oracle_s)
+
+    AT = rel.A.T.store
+    shapes["pagerank"] = h.bsr_mxm_case(
+        AT, h.frontier(n, 1, 1), S.PLUS_TIMES, f"scale-{ALGO_SCALE} transpose "
+        f"handle F=1 (PageRank's pull)", timed=True)
+    shapes["brandes"] = h.bsr_mxm_case(
+        AT, h.frontier(n, BETWEENNESS_SOURCES, 128), S.PLUS_TIMES,
+        f"scale-{ALGO_SCALE} transpose handle F={BETWEENNESS_SOURCES} "
+        f"(Brandes' forward sweep)", timed=True)
+    serve_closeness(g, W, "bsr", "bsr_mxm")
+    del g, rel, AT
+    h.release()
+
+    # SSSP: integer weights 1-3 from seed 0, against Dijkstra
+    w = np.random.default_rng(0).integers(1, 4, size=len(src)).astype(
+        np.float32)
+    g = GraphBuilder(n).add_edges("KNOWS", src, dst, w).build(
+        fmt="bsr", device=DEVICE)
+    rel = g.relations["KNOWS"]
+    Ww = stored(src, dst, n, w)
+    ssrc = sources(Ww, SSSP_SOURCES, 64)
+    t0 = time.perf_counter()
+    want = csgraph.dijkstra(Ww, indices=ssrc).T.astype(np.float32)
+    sssp_oracle_s = time.perf_counter() - t0
+    dist, dt, launched = counted("algo_sssp", lambda: algo.sssp(rel, ssrc),
+                                 ["bsr_mxm"])
+    got = on_card(dist, "algo_sssp")
+    check(np.array_equal(got, want), f"algo_sssp: distances differ from "
+          f"Dijkstra's at {int((got != want).sum())} entries")
+    fin = np.isfinite(want)
+    h.emit_phase(phase="algo_sssp", card=card, fmt="bsr", n=n,
+                 nnz=rel.nnz, sources=SSSP_SOURCES, weights="1-3",
+                 seconds=dt, rounds=launched.get("bsr_mxm"),
+                 max_dist=float(want[fin].max()),
+                 reached_mean=float(fin.sum(axis=0).mean()),
+                 launches=launched, oracle_s=sssp_oracle_s, exact=True)
+    shapes["sssp"] = h.bsr_mxm_case(
+        rel.A.T.store, dist, S.MIN_PLUS, f"scale-{ALGO_SCALE} weighted "
+        f"transpose handle F={SSSP_SOURCES} (SSSP's relaxation)", timed=True,
+        with_tile=False, library=None)
+    del g, rel, dist, Ww, W, WT
+    h.release()
+
+    # label propagation (CDLP) through CALL on R-MAT s14
+    lsrc, ldst, ln = rmat_edges(LABELPROP_SCALE)
+    Wl = stored(lsrc, ldst, ln)
+    g = rmat_graph(LABELPROP_SCALE, fmt="bsr", device=DEVICE)
+    t0 = time.perf_counter()
+    C = Wl.tocoo()
+    tgt = np.concatenate([C.row, C.col, np.arange(ln)])
+    voter = np.concatenate([C.col, C.row, np.arange(ln)])
+    labels, rounds = np.arange(ln), 0
+    for _ in range(50):
+        key, cnt = np.unique(tgt * ln + labels[voter], return_counts=True)
+        v, lab = key // ln, key % ln
+        # each vertex's first row after the sort: its top count's
+        # smallest label (every vertex votes for itself, so each has one)
+        order = np.lexsort((lab, -cnt, v))
+        _, first = np.unique(v[order], return_index=True)
+        new = lab[order][first]
+        rounds += 1
+        if np.array_equal(new, labels):
+            break
+        labels = new
+    lp_oracle_s = time.perf_counter() - t0
+    res, dt, launched = counted("algo_labelprop", lambda: execute(
+        g, "CALL algo.labelprop(rel: KNOWS)"), ["bsr_mxm"])
+    got = call_column(res)
+    check(np.array_equal(got, labels), f"algo_labelprop: labels differ from "
+          f"numpy's at {int((got != labels).sum())} vertices")
+    h.emit_phase(phase="algo_labelprop", card=card, fmt="bsr",
+                 scale=LABELPROP_SCALE, n=ln, nnz=g.relations["KNOWS"].nnz,
+                 seconds=dt, rounds=rounds,
+                 communities=int(len(np.unique(labels))),
+                 chunks=launched["bsr_mxm"] // 2, launches=launched,
+                 oracle_s=lp_oracle_s, exact=True)
+    onehot = torch.zeros((ln, LABEL_CHUNK), dtype=torch.float32,
+                         device=DEVICE)
+    onehot[torch.arange(LABEL_CHUNK), torch.arange(LABEL_CHUNK)] = 1.0
+    shapes["labelprop"] = h.bsr_mxm_case(
+        g.relations["KNOWS"].A.T.store, onehot, S.PLUS_PAIR,
+        f"scale-{LABELPROP_SCALE} transpose handle F={LABEL_CHUNK} (a CDLP "
+        f"vote chunk)", timed=True, library="pattern")
+    del g, onehot, Wl
+    h.release()
+
+    # WCC on the BitELL serving graph
+    bsrc_, bdst, bn = rmat_edges(WCC_BITADJ_SCALE)
+    Wb = stored(bsrc_, bdst, bn)
+    g = rmat_graph(WCC_BITADJ_SCALE, fmt="bitadj", device=DEVICE)
+    wcc_phase(g, Wb, "bitadj", "bitadj_mxv_packed")
+    del g, Wb
+    h.release()
+    return shapes, words, word_shapes
 
 
 def bsr_out_degree(torch, store):
@@ -1619,13 +2074,15 @@ def library_bsr_mm(torch, store, X):
         return None, f"{type(e).__name__}: {e}"[:300]
 
 
-def library_spmm(torch, csr, shape, X):
+def library_spmm(torch, csr, shape, X, pattern=False):
     """(ms, reason): ``torch.sparse.mm`` of the handle's row CSR, already
     on the card, and the dense frontier (cuSPARSE SpMM: the same gathers
-    and multiply-adds as the entry kernel, over plus_times), or None and
-    why it did not run. A yardstick only: the port never calls it."""
+    and multiply-adds as the entry kernel, over plus_times; with
+    ``pattern`` over ones, the plus_pair count of a 0/1 frontier), or None
+    and why it did not run. A yardstick only: the port never calls it."""
     try:
-        M = torch.sparse_csr_tensor(csr.indptr, csr.cols.long(), csr.vals,
+        vals = torch.ones_like(csr.vals) if pattern else csr.vals
+        M = torch.sparse_csr_tensor(csr.indptr, csr.cols.long(), vals,
                                     size=tuple(shape))
         Xf = X.to(torch.float32).contiguous()
         return time_ms(torch, lambda: torch.sparse.mm(M, Xf)), None

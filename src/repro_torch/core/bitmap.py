@@ -81,3 +81,16 @@ def popcount(xw: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def reduce_or_columns(xw: torch.Tensor, f: int) -> torch.Tensor:
+    """(n, W) words -> (f,) float32 per-query reached counts (the packed
+    ``grb.reduce(plus, axis=0)`` of an indicator frontier). A popcount
+    counts a word's 32 queries of one row; this counts one query's rows,
+    bit by bit in int64, so the counts stay exact past 2^24 rows (the JAX
+    package sums float32, equal below that)."""
+    n, w = xw.shape
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=xw.device)
+    bits = (xw[:, :, None] >> shifts) & 1                   # (n, W, 32)
+    per = bits.sum(dim=0, dtype=torch.int64).reshape(w * WORD_BITS)
+    return per[:f].to(torch.float32)

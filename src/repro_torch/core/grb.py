@@ -18,6 +18,7 @@ Port of ``repro.core.grb``, cut to what the k-hop MATCH path reaches:
                           call of word-resident hop loops (BSR detours
                           through the float mxm on the device);
   words_route_ok          the gate for those loops;
+  mxv / vxm               width-1 products through ``mxm``;
   ewise_add / ewise_mult  the element-wise family over stored entries
   apply / select          (union, intersection, GrB_apply, GxB_select),
   extract / assign        GrB_extract / GrB_assign and GrB_reduce, with
@@ -89,6 +90,7 @@ class Descriptor:
 
 
 NULL = Descriptor()
+TRANSPOSE_A = Descriptor(transpose_a=True)
 
 
 def finalize(d: Descriptor, result: torch.Tensor, out: Optional[torch.Tensor],
@@ -387,6 +389,29 @@ def words_route_ok(A, f: int) -> bool:
     if A.fmt == "bitadj":
         return True
     return A.fmt == "ell" and _pack_wanted(f)
+
+
+def _columnize(v) -> Optional[torch.Tensor]:
+    # (n,) vectors become width-1 columns; anything else passes through
+    if v is not None and getattr(v, "ndim", None) == 1:
+        return v[:, None]
+    return v
+
+
+def mxv(A, x: torch.Tensor, sr: S.Semiring, d: Descriptor = NULL,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y<m> accum= A (x) x: ``mxm`` on a width-1 frontier (on BSR the
+    ``bsr_mxm`` kernel at F = 1)."""
+    dm = d.with_(mask=_columnize(d.mask))
+    y = mxm(A, x[:, None], sr, dm, out=_columnize(out))
+    return y[:, 0]
+
+
+def vxm(x: torch.Tensor, A, sr: S.Semiring, d: Descriptor = NULL,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x (x) A == A^T (x) x, served from the handle's stored
+    transpose."""
+    return mxv(A, x, sr, d.with_(transpose_a=not d.transpose_a), out=out)
 
 
 # ---------------------------------------------------------------------------

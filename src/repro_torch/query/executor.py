@@ -19,9 +19,12 @@ is one hand-written kernel launch.
 ``execute()`` is the solo driver over the same context and
 ``resolve_seeds`` the one seed semantics both share. A context reads one
 frozen Graph: CREATE / DELETE raise TypeError, unknown relations raise
-ValueError. ``CALL algo.*`` is not ported yet and raises
-NotImplementedError. ``project`` materializes rows on the host; the
-``.cpu()`` there is where the host waits for the device.
+ValueError. ``CALL algo.*`` dispatches through ``PROCEDURES``: a
+procedure's device half (``traverse``) runs its ``repro_torch.algorithms``
+call and returns a tensor on the graph's device, one column per source
+(seeded procedures) or one shared column; its host half (``project``)
+turns a member's columns into YIELD rows. ``project`` materializes rows
+on the host; the ``.cpu()`` there is where the host waits for the device.
 """
 from __future__ import annotations
 
@@ -37,9 +40,7 @@ from repro_torch.core.grb import Descriptor
 from repro_torch.graph.graph import Graph
 from repro_torch.query import qast as A
 from repro_torch.query.parser import parse
-from repro_torch.query.planner import CallPlan, Plan, plan
-
-_CALL_NOT_PORTED = "CALL algo.* is not ported yet"
+from repro_torch.query.planner import PROC_COLUMNS, CallPlan, Plan, plan
 
 
 @dataclasses.dataclass
@@ -122,6 +123,162 @@ def eval_pred(graph: Graph, node, n: int) -> np.ndarray:
         m[node.seeds] = True
         return m
     raise TypeError(node)
+
+
+# -- CALL algo.* procedures ---------------------------------------------------
+# A procedure is the MATCH pair split the same way: `device` is the traverse
+# analog (the algorithm call, columns belong to seed columns), `rows` the
+# project analog (the member's column slice -> row tuples in canonical column
+# order). Seeded procedures batch: the server concatenates signature-equal
+# members' source lists into one device call and slices each member's
+# columns back out. Source-less calls are global and ride alone. Unseeded
+# procedures (pagerank, wcc, ...) return one shared column; numpy's slice
+# clamping makes the server's per-member column slicing a no-op on them.
+
+@dataclasses.dataclass(frozen=True)
+class Procedure:
+    columns: tuple                      # canonical yield columns, in order
+    seeded: bool                        # accepts a `sources:` list
+    defaults: dict                      # allowed args + default values
+    device: object                      # (ctx, args, seeds) -> (n, F) tensor
+    rows: object                        # (ctx, args, seeds, Bn) -> [tuple]
+
+
+def _proc_M(ctx: "ExecutionContext", args: dict) -> grb.GBMatrix:
+    return ctx.matrix(args["rel"])
+
+
+def _pagerank_device(ctx, a, seeds):
+    from repro_torch.algorithms import pagerank
+    return pagerank(_proc_M(ctx, a), alpha=float(a["alpha"]),
+                    iters=int(a["iters"]))[:, None]
+
+
+def _betweenness_device(ctx, a, seeds):
+    from repro_torch.algorithms import brandes_parts
+    return brandes_parts(_proc_M(ctx, a), seeds)
+
+
+def _levels_device(ctx, a, seeds):
+    from repro_torch.algorithms import bfs_levels
+    return bfs_levels(_proc_M(ctx, a), seeds,
+                      max_iter=int(a.get("max_hops", 0)))
+
+
+def _similarity_device(ctx, a, seeds):
+    from repro_torch.algorithms import similarity
+    return similarity(_proc_M(ctx, a), seeds, kind=a["kind"])
+
+
+def _wcc_device(ctx, a, seeds):
+    from repro_torch.algorithms import wcc
+    return wcc(_proc_M(ctx, a))[:, None]
+
+
+def _labelprop_device(ctx, a, seeds):
+    from repro_torch.algorithms import label_propagation
+    return label_propagation(_proc_M(ctx, a),
+                             max_iter=int(a["max_iter"]))[:, None]
+
+
+def _triangles_device(ctx, a, seeds):
+    from repro_torch.algorithms import triangle_count
+    return triangle_count(_proc_M(ctx, a)).reshape(1, 1)
+
+
+def _node_float_rows(ctx, a, seeds, Bn):
+    col = Bn[:, 0]
+    return [(i, float(col[i])) for i in range(Bn.shape[0])]
+
+
+def _node_int_rows(ctx, a, seeds, Bn):
+    col = Bn[:, 0]
+    return [(i, int(col[i])) for i in range(Bn.shape[0])]
+
+
+def _betweenness_rows(ctx, a, seeds, Bn):
+    # a member's score is the dependency sum over its own source columns,
+    # so batched == solo
+    bc = Bn.sum(axis=1)
+    return [(i, float(bc[i])) for i in range(Bn.shape[0])]
+
+
+def _closeness_rows(ctx, a, seeds, Bn):
+    from repro_torch.algorithms import closeness_from_levels
+    scores = closeness_from_levels(torch.from_numpy(Bn)).numpy()
+    return [(int(s), float(scores[j])) for j, s in enumerate(seeds)]
+
+
+def _similarity_rows(ctx, a, seeds, Bn):
+    rows = [(int(seeds[j]), int(i), float(Bn[i, j]))
+            for i, j in zip(*np.nonzero(Bn > 0))]
+    rows.sort()
+    return rows
+
+
+def _bfs_rows(ctx, a, seeds, Bn):
+    rows = [(int(seeds[j]), int(i), int(Bn[i, j]))
+            for i, j in zip(*np.nonzero(np.isfinite(Bn)))]
+    rows.sort()
+    return rows
+
+
+def _triangles_rows(ctx, a, seeds, Bn):
+    return [(int(Bn[0, 0]),)]
+
+
+PROCEDURES = {
+    "algo.pagerank": Procedure(
+        PROC_COLUMNS["algo.pagerank"], False,
+        {"rel": None, "alpha": 0.85, "iters": 50},
+        _pagerank_device, _node_float_rows),
+    "algo.betweenness": Procedure(
+        PROC_COLUMNS["algo.betweenness"], True,
+        {"rel": None}, _betweenness_device, _betweenness_rows),
+    "algo.closeness": Procedure(
+        PROC_COLUMNS["algo.closeness"], True,
+        {"rel": None}, _levels_device, _closeness_rows),
+    "algo.similarity": Procedure(
+        PROC_COLUMNS["algo.similarity"], True,
+        {"rel": None, "kind": "jaccard"},
+        _similarity_device, _similarity_rows),
+    "algo.wcc": Procedure(
+        PROC_COLUMNS["algo.wcc"], False,
+        {"rel": None}, _wcc_device, _node_int_rows),
+    "algo.labelprop": Procedure(
+        PROC_COLUMNS["algo.labelprop"], False,
+        {"rel": None, "max_iter": 50}, _labelprop_device, _node_int_rows),
+    "algo.triangles": Procedure(
+        PROC_COLUMNS["algo.triangles"], False,
+        {"rel": None}, _triangles_device, _triangles_rows),
+    "algo.bfs": Procedure(
+        PROC_COLUMNS["algo.bfs"], True,
+        {"rel": None, "max_hops": 0}, _levels_device, _bfs_rows),
+}
+assert set(PROCEDURES) == set(PROC_COLUMNS) and all(
+    p.columns == PROC_COLUMNS[k] for k, p in PROCEDURES.items()), \
+    "planner.PROC_COLUMNS out of sync with executor.PROCEDURES"
+
+
+def _procedure(name: str) -> Procedure:
+    proc = PROCEDURES.get(name)
+    if proc is None:
+        # raised at execution, not planning: the server turns this into a
+        # per-query error Result instead of failing the submitter
+        raise ValueError(f"no procedure {name!r} "
+                         f"(have: {sorted(PROCEDURES)})")
+    return proc
+
+
+def _call_args(name: str, proc: Procedure, args: dict) -> dict:
+    unknown = sorted(set(args) - set(proc.defaults))
+    if unknown:
+        takes = sorted(proc.defaults) + (["sources"] if proc.seeded else [])
+        raise ValueError(f"{name}: unknown argument(s) {unknown} "
+                         f"(takes: {takes})")
+    out = dict(proc.defaults)
+    out.update(args)
+    return out
 
 
 # -- public execution surface -------------------------------------------------
@@ -268,9 +425,12 @@ class ExecutionContext:
     def traverse(self, p: Plan, seeds, keep=None) -> torch.Tensor:
         """Seeds -> final (n, F) frontier for a plan: the device half of
         `run`, and the batch hook the server composes. Kernels are launched
-        asynchronously on a CUDA graph; nothing here waits for them."""
+        asynchronously on a CUDA graph; nothing here waits for them (a
+        procedure's host loop reads its own conditions). A CallPlan
+        dispatches to its procedure's device half: columns belong to seed
+        columns, padding lanes compute and are sliced away."""
         if isinstance(p, CallPlan):
-            raise NotImplementedError(_CALL_NOT_PORTED)
+            return self._call_device(p, seeds)
         sr = S.get(p.semiring)
         B = self.seed_frontier(seeds, keep=keep)
         for e in p.expands:
@@ -281,9 +441,9 @@ class ExecutionContext:
     def project(self, p: Plan, seeds: np.ndarray, B) -> Result:
         """Materialize RETURN rows from the final frontier matrix (a tensor,
         or its numpy copy)."""
-        if isinstance(p, CallPlan):
-            raise NotImplementedError(_CALL_NOT_PORTED)
         Bn = _host(B) if isinstance(B, torch.Tensor) else np.asarray(B)
+        if isinstance(p, CallPlan):
+            return self._call_project(p, seeds, Bn)
         cols = [_colname(r) for r in p.returns]
         src_var = p.src_var
         graph = self.graph
@@ -335,6 +495,37 @@ class ExecutionContext:
             rows = rows[: p.limit]
         return Result(cols, rows)
 
+    # -- CALL dispatch -------------------------------------------------------
+    def _call_device(self, p: CallPlan, seeds) -> torch.Tensor:
+        """Device half of a procedure call (the traverse analog). Seeded
+        procedures compute one column per seed; unseeded ones return one
+        shared column and reject an explicit `sources:` list."""
+        proc = _procedure(p.proc)
+        a = _call_args(p.proc, proc, p.args)
+        if p.seeds is not None and not proc.seeded:
+            raise ValueError(f"{p.proc} takes no sources "
+                             f"(it is a whole-graph procedure)")
+        return proc.device(self, a, np.asarray(seeds, dtype=np.int64))
+
+    def _call_project(self, p: CallPlan, seeds, Bn: np.ndarray) -> Result:
+        """Host half (the project analog): the member's column slice ->
+        YIELD rows. YIELD selects, renames and reorders the procedure's
+        canonical columns; an unknown yield name raises (per member)."""
+        proc = _procedure(p.proc)
+        a = _call_args(p.proc, proc, p.args)
+        rows = proc.rows(self, a, np.asarray(seeds, dtype=np.int64), Bn)
+        cols, idx = [], []
+        for r in p.returns:
+            if r.var not in proc.columns:
+                raise ValueError(f"{p.proc} yields {list(proc.columns)}, "
+                                 f"not {r.var!r}")
+            cols.append(r.alias or r.var)
+            idx.append(proc.columns.index(r.var))
+        rows = [tuple(row[i] for i in idx) for row in rows]
+        if p.limit is not None:
+            rows = rows[: p.limit]
+        return Result(cols, rows)
+
     # -- solo driver ---------------------------------------------------------
     def run(self, query) -> Result:
         """Execute a read query: text, MatchQuery AST, or an already-built
@@ -348,8 +539,6 @@ class ExecutionContext:
                 raise TypeError(f"{kw} goes through engine.Database, not a "
                                 f"read ExecutionContext")
             p = plan(q)
-        if isinstance(p, CallPlan):
-            raise NotImplementedError(_CALL_NOT_PORTED)
 
         src_mask = self.node_mask(p.src_label, p.var_preds.get(p.src_var))
         if p.seeds is not None:

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
 PyTorch version, the k-hop slice (ELL, BitELL and BSR) on a CUDA graph
-against the same slice on the CPU, and the analytics (triangles, k-truss,
-similarity) on the card against the CPU.
+against the same slice on the CPU, the analytics (triangles, k-truss,
+similarity) and the remaining algorithms (BFS, k-hop, SSSP, PageRank, WCC,
+centrality, label propagation) on the card against the CPU, and
+``CALL algo.*`` through the server on the card.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -10,7 +12,8 @@ package, so on a machine with a card and without JAX it runs as
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Everything compared is integer or boolean: ``torch.equal``, bit for bit,
-except the BSR kernels' weighted modes (tolerance stated beside them).
+except the BSR kernels' weighted modes and the float algorithms, PageRank
+and betweenness (tolerance stated beside them).
 """
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from repro_torch.core.bsr import BSR
 from repro_torch.core.ell import ELL
 from repro_torch.engine import QueryServer
 from repro_torch.graph import datagen
+from repro_torch.graph.graph import GraphBuilder
 from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_ewise, bsr_mxm,
                                  bsr_spgemm)
 from repro_torch.query import execute
@@ -1025,3 +1029,123 @@ def test_analytics_on_cuda_launch_and_match_cpu():
                        algo.similarity(gh, src, rel="KNOWS"))
     assert bsr_ewise.launches > e0 and bsr_spgemm.launches > s0
     assert bsr_mxm.launches > m0
+
+
+# -- the remaining algorithms on the card -------------------------------------
+# Each on a small CUDA graph against the same call on the CPU graph: levels,
+# k-hop counts, SSSP distances (integer weights), WCC and label propagation
+# labels and closeness bit for bit; PageRank within atol 1e-6 and
+# betweenness within 1e-4 relative (the entry kernel sums in column order,
+# the CPU's plain version by index_add_).
+def _algo_graphs(fmt, weighted=False):
+    src, dst, n = datagen.rmat_edges(9, 8, seed=9)
+    keep = src != dst
+    s, d = src[keep], dst[keep]
+    w = (np.random.default_rng(0).integers(0, 4, size=len(s)).astype(
+        np.float32) if weighted else None)
+    return [GraphBuilder(n).add_edges("KNOWS", s, d, w).build(
+        fmt=fmt, device=dev).relations["KNOWS"] for dev in ("cuda", "cpu")]
+
+
+@pytest.mark.parametrize("fmt", ["bsr", "ell", "bitadj"])
+def test_algorithms_on_cuda_match_cpu(fmt):
+    from repro_torch import algorithms as algo
+    gc, gh = _algo_graphs(fmt)
+    src = list(range(0, 512, 9))
+    kernel = {"bsr": bsr_mxm, "ell": bitmap_mxv, "bitadj": bitadj_mxv}[fmt]
+    before = kernel.launches
+    for fn in (lambda r: algo.bfs_levels(r, src),
+               lambda r: algo.khop_counts(r, src, 2),
+               lambda r: algo.wcc(r),
+               lambda r: algo.closeness(r, sources=src),
+               lambda r: algo.label_propagation(r)):
+        got, want = fn(gc), fn(gh)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    assert kernel.launches > before
+    got, want = algo.pagerank(gc), algo.pagerank(gh)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+    got, want = algo.betweenness(gc, sources=src), algo.betweenness(
+        gh, sources=src)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    wc, wh = _algo_graphs(fmt, weighted=fmt != "bitadj")
+    assert torch.equal(algo.sssp(wc, src[:16]).cpu(), algo.sssp(wh, src[:16]))
+
+
+def test_bsr_algorithms_launch_the_entry_kernel_at_their_shapes():
+    """SSSP (bcast min_plus, F = 16), PageRank (plus_times, F = 1), Brandes
+    (plus_times, F = the batch) and label propagation (plus_pair, F = up to
+    256) each take bsr_mxm's entry kernel on Graph500 tiles, never the
+    tile kernel."""
+    from repro_torch import algorithms as algo
+    (gc, _), (wc, _) = _algo_graphs("bsr"), _algo_graphs("bsr", True)
+    for fn in (lambda: algo.sssp(wc, list(range(16))),
+               lambda: algo.pagerank(gc, iters=3),
+               lambda: algo.betweenness(gc, sources=list(range(40))),
+               lambda: algo.label_propagation(gc, max_iter=2)):
+        e0, t0 = bsr_mxm.launches_entry, bsr_mxm.launches_tile
+        fn()
+        torch.cuda.synchronize()
+        assert bsr_mxm.launches_entry > e0 and bsr_mxm.launches_tile == t0
+
+
+@pytest.mark.parametrize("srname,f", [("plus_times", 1), ("min_plus", 64),
+                                      ("plus_times", 128),
+                                      ("plus_pair", 256),
+                                      ("or_and", 128)])
+def test_bsr_mxm_entry_at_the_algorithm_shapes(srname, f, no_tf32):
+    """The algorithms' widths of the entry kernel, on an R-MAT handle with
+    integer weights (zeros stored through the emask): equal to the plain
+    version and the tile kernel bit for bit."""
+    (wc, _) = _algo_graphs("bsr", weighted=True)
+    A = wc.A.T.store
+    assert A.emask is not None
+    rng = np.random.default_rng(f)
+    X = torch.from_numpy(np.where(rng.uniform(size=(A.shape[1], f)) < 0.3,
+                                  rng.integers(1, 4, size=(A.shape[1], f)),
+                                  0).astype(np.float32)).cuda()
+    sr = S.get(srname)
+    csr = A.row_csr()
+    got = bsr_mxm.bsr_mxm_entry(csr, X, sr)
+    plain = bsr_mxm.bsr_mxm_entry_plain(csr, X, sr)
+    tile = bsr_mxm.bsr_mxm_tile(A, X, sr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(got, tile)
+
+
+def test_sssp_zero_weight_golden_on_the_entry_kernel():
+    from repro_torch import algorithms as algo
+    A = BSR.from_coo(np.array([0, 1]), np.array([1, 2]),
+                     np.array([0.0, 1.0], np.float32), (3, 3), block=2,
+                     device="cuda")
+    assert A.emask is not None
+    e0 = bsr_mxm.launches_entry
+    dist = algo.sssp(A, [0])
+    torch.cuda.synchronize()
+    assert bsr_mxm.launches_entry > e0
+    assert dist[:, 0].cpu().tolist() == [0.0, 0.0, 1.0]
+
+
+@pytest.mark.parametrize("fmt", ["bsr", "ell"])
+def test_call_through_the_server_on_cuda_matches_cpu(fmt):
+    """Seeded closeness CALLs coalesce on the card and answer as on the
+    CPU; an unseeded PageRank and WCC ride alone."""
+    graphs = [datagen.rmat_graph(9, fmt=fmt, device=d) for d in ("cuda",
+                                                                 "cpu")]
+    t = "CALL algo.closeness(rel: KNOWS) YIELD node, score"
+    outs, stats = [], []
+    for g in graphs:
+        srv = QueryServer(g)
+        q = [srv.submit(t, seeds=[s]) for s in range(0, 300, 7)]
+        q.append(srv.submit("CALL algo.wcc(rel: KNOWS)"))
+        q.append(srv.submit("CALL algo.pagerank(rel: KNOWS, iters: 20)"))
+        out = srv.flush()
+        outs.append([out[i] for i in q])
+        stats.append(srv.stats)
+    assert all(r.error is None for r in outs[0] + outs[1])
+    cuda_rows, cpu_rows = ([r.rows for r in o] for o in outs)
+    assert cuda_rows[:-1] == cpu_rows[:-1]
+    np.testing.assert_allclose([s for _, s in cuda_rows[-1]],
+                               [s for _, s in cpu_rows[-1]], atol=1e-6)
+    assert stats[0]["batches"] == stats[1]["batches"] == 1
+    assert stats[0]["solo"] == 2
