@@ -54,6 +54,25 @@ Phases, each printing one JSON line:
             ``scipy.sparse`` oracles (triangle count and every truss edge
             and support exactly, Jaccard scores within 1e-6 relative)
   library   one PyTorch call computing what a kernel computes, a yardstick
+  algo_*    the remaining algorithms and ``CALL algo.*`` (``algorithm_cells``)
+  write_*   the write path (``write_path_cells``): two ``Database`` graphs
+            loaded from R-MAT s16 through ``MutableGraph.create_edge``
+            (ELL by ``fmt="auto"``, and BSR with 64-tiles), three rounds
+            of 2% deletes and creates sent as fsynced commands of 256
+            edges (pending crosses ``AUTO_DELTA_COMPACT`` in round 3),
+            each followed by 1024 served k-hop queries on the delta
+            handles (kernels ``ell_mxv_packed``, ``bsr_mxm``) against the
+            same graph compacted and the scipy BFS of the live edge set,
+            and a reader frozen before the round that must not move; the
+            kernels bit for bit against their plain versions at the write
+            path's shapes (the patch's ELL, the 64-tile bases); writes
+            interleaved with reads (one command, then one batch, its
+            latency with the freeze and the patch); the read cost at 0-10%
+            pending; the five algorithms and k-truss on
+            an s14 BSR delta handle (``bsr_spgemm``, ``bsr_ewise``)
+            against its compaction; an s12 graph written through CREATE
+            and replayed from its AOF; and an s12 dense handle against
+            its ELL
 
 then the kernels line, the nvidia-smi line, and the result line. Any
 failed check raises and the script exits non-zero without a result line;
@@ -104,6 +123,26 @@ LABELPROP_SCALE = 14
 LABEL_CHUNK = 256              # labels a CDLP vote chunk (its F)
 WCC_BITADJ_SCALE = 18
 WCC_BATCH = 128                # seeds a WCC closure takes (wcc's batch)
+# the write path: Database graphs on Graph500 R-MAT, written in commands of
+# WRITE_COMMAND edges, each round WRITE_FRAC of the base's stored entries
+# (half deletes, half creates) so that pending crosses
+# core.delta.AUTO_DELTA_COMPACT in round 3; the read cost at each pending
+# share; the algorithms on a delta handle at scale 14, recovery and dense
+# handles at scale 12 (a 64 MB dense matrix)
+WRITE_SCALE = 16
+WRITE_ROUNDS = 3
+WRITE_FRAC = 0.02
+WRITE_COMMAND = 256
+WRITE_ALGO_SCALE = 14
+RECOVERY_SCALE = 12
+DENSE_SCALE = 12
+READ_COST_PENDING = (0.0, 0.01, 0.02, 0.05, 0.10)
+# interleaved writes and reads: INTERLEAVE_STEPS times one command, then
+# one batch of reads, right after round 3's compaction and again after a
+# bulk write of INTERLEAVE_BULK of the base (below the threshold)
+INTERLEAVE_STEPS = 4
+INTERLEAVE_BULK = 0.03
+SEED = 0                       # --seed: the write streams' draws
 # the fill sweeps: an n x n matrix at each tile side and fill, frontiers
 # of SWEEP_F columns; the planted-partition graph's communities and degrees
 SWEEP_N = 8192
@@ -191,6 +230,7 @@ def wall_ms(torch, fn, reps=3):
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -275,7 +315,7 @@ def main() -> int:
         return torch.from_numpy(
             x.astype(np.uint32).view(np.int32)).to(DEVICE)
 
-    def ell_case(store, w, tag, timed):
+    def ell_case(store, w, tag, timed, earlier=True):
         xw = words(store.shape[1], w)
         got = bitmap_mxv.ell_mxv_packed(store, xw)
         want = ops.ell_mxm_packed(store, xw)
@@ -308,8 +348,8 @@ def main() -> int:
                 split_rows=plan.split_rows, longest_row=plan.longest_row,
                 l2_gather_bytes=store.nnz * w * 4,
                 memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
-                earlier_ms=EARLIER_MS["ell_mxv_packed"] if w == 16
-                else None)
+                earlier_ms=EARLIER_MS["ell_mxv_packed"]
+                if w == 16 and earlier else None)
         emit_phase(**row)
         return row
 
@@ -1480,6 +1520,11 @@ def main() -> int:
     for k, v in algo_words.items():
         kern[k]["launches"] += v
 
+    # -- the write path: Database, delta storage, AOF, dense handles ---------
+    write_words, write_shapes = write_path_cells(torch, h)
+    for k, v in write_words.items():
+        kern[k]["launches"] += v
+
     # -- the kernels line, the card, the result --------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     rows_by = {
@@ -1542,12 +1587,22 @@ def main() -> int:
             for name, r_ in word_shapes[entry["name"]].items()}
     sp = kern["bsr_spgemm"]
     # the algorithms' shapes of the entry kernel
+    entry_keys = ("shape", "semiring", "F", "picked", "equal", "entry_ms",
+                  "entry_bound_ms", "entry_bound_by", "plain_ms",
+                  "library_ms", "library_reason")
     line[2]["algorithm_shapes"] = {
-        name: {k: r_[k] for k in (
-            "shape", "semiring", "F", "picked", "equal", "entry_ms",
-            "entry_bound_ms", "entry_bound_by", "plain_ms", "library_ms",
-            "library_reason")}
+        name: {k: r_[k] for k in entry_keys}
         for name, r_ in algo_shapes.items()}
+    # the write path's shapes: the patches (kernel 1), the 64-tile bases
+    # (kernel 3), each bit for bit against its plain version
+    line[0]["write_shapes"] = {
+        name: {k: r_[k] for k in (
+            "shape", "W", "equal", "max_abs_err", "kernel_ms", "bound_ms",
+            "bound_by", "plain_ms", "library_ms")}
+        for name, r_ in write_shapes["ell_mxv_packed"].items()}
+    line[2]["write_shapes"] = {
+        name: {k: r_[k] for k in entry_keys + ("masked", "block")}
+        for name, r_ in write_shapes["bsr_mxm"].items()}
     line[4].update(entry_form_ms=sp["entry_form_ms"],
                    dispatch_ms=sp["dispatch_ms"], plan_ms=sp["plan_ms"],
                    spgemm_ms=sp["spgemm_ms"], triangle_shape={
@@ -1570,7 +1625,8 @@ def main() -> int:
               f"{entry['name']} never launched in the fill sweeps")
     read_peak()
     emit_phase(phase="memory", card=card,
-               max_memory_allocated_gb=peak[0] / 1e9)
+               max_memory_allocated_gb=peak[0] / 1e9,
+               elapsed_s=time.perf_counter() - started)
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2115,5 +2171,627 @@ def library_spgemm(torch, store, masked=False):
         return None, f"{type(e).__name__}: {e}"[:300]
 
 
+def write_path_cells(torch, h):
+    """The write path on the card: ``Database`` / ``MutableGraph`` with an
+    AOF in a temporary directory, delta-served reads, compaction, replay,
+    the algorithms on a delta handle and dense handles. Each phase is
+    driven with the launch counts at 0 and read just after; each is held
+    against an oracle that does not use the port (scipy over the live
+    edge set) or against the same graph compacted. ``h`` carries main's
+    helpers and the path's launch totals (``h.path``). Returns the word
+    kernel's launches on the write path and the kernels' rows at the
+    write path's shapes."""
+    import shutil
+    import tempfile
+
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from repro_torch import algorithms as algo
+    from repro_torch.core import grb
+    from repro_torch.core import semiring as S
+    from repro_torch.core.delta import AUTO_DELTA_COMPACT, DeltaMatrix
+    from repro_torch.engine import Database, QueryServer
+    from repro_torch.engine.server import MAX_WIDTH
+    from repro_torch.graph.datagen import rmat_edges
+    from repro_torch.graph.graph import Graph, Relation
+    from repro_torch.kernels import bsr_mxm
+
+    card = h.card
+    words = {"ell_mxv_packed": 0}
+    # the kernels at the write path's shapes, bit for bit against their
+    # plain versions: kernel 1 on the delta patches, kernel 3's entry
+    # kernel on the 64-tile bases
+    shapes = {"ell_mxv_packed": {}, "bsr_mxm": {}}
+    tmpl = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_write_")
+
+    def counted(fn):
+        """(fn(), seconds, launches, variant launches) with the counts at
+        0 just before; the launches join the path's totals."""
+        h.zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got, var = h.launches_now(), h.variant_launches()
+        for k in h.path:
+            h.path[k] += var[k]
+        words["ell_mxv_packed"] += got["ell_mxv_packed"]
+        return out, dt, got, var
+
+    def live_csr(mg, n):
+        """scipy CSR of the live KNOWS edge set (``MutableGraph.edges``)."""
+        keys = np.array([(s, d) for (r, s, d) in mg.edges if r == "KNOWS"],
+                        dtype=np.int64).reshape(-1, 2)
+        return sp.csr_matrix((np.ones(len(keys)), (keys[:, 0], keys[:, 1])),
+                             shape=(n, n))
+
+    def compacted(g):
+        """The query's relation of ``g`` with its deltas folded into fresh
+        base-format handles, held by the returned graph alone."""
+        A = g.relations["KNOWS"].A
+        h_ = grb.GBMatrix(A.store.materialize(), name="KNOWS")
+        h_.link_transpose(grb.GBMatrix(A.T.store.materialize(),
+                                       name="KNOWS^T"))
+        return Graph(n=g.n, relations={"KNOWS": Relation("KNOWS", h_,
+                                                         nnz=A.nvals)},
+                     labels=g.labels, node_props=g.node_props,
+                     device=g.device)
+
+    def unique_edges(src, dst, n):
+        key = np.unique(src * n + dst)
+        return key // n, key % n
+
+    def reach_12(W, s):
+        """Vertices first reached from s at hop 1 or 2 (s itself never)."""
+        n1 = W.indices[W.indptr[s]:W.indptr[s + 1]]
+        n2 = W[n1].indices if len(n1) else np.zeros(0, np.int64)
+        r = np.union1d(n1, n2)
+        return int(len(r) - np.isin(s, r))
+
+    def serve(source, seeds, tag, warm=True):
+        """Seeded k-hop queries through one server, after a warm-up batch
+        of CHECKED queries that builds the handles' kernel forms: (counts,
+        qps, p50_ms, p99_ms, seconds, launches, variants)."""
+        srv = source if isinstance(source, QueryServer) else \
+            QueryServer(source)
+        if warm:
+            for s in seeds[:CHECKED]:
+                srv.submit(tmpl, seeds=[int(s)])
+            srv.flush()
+
+        def run():
+            qids = [srv.submit(tmpl, seeds=[int(s)]) for s in seeds]
+            return srv.flush(), qids
+
+        (out, qids), dt, got, var = counted(run)
+        errors = [out[q].error for q in qids if out[q].error]
+        check(not errors, f"{tag}: query errors {errors[:3]}")
+        counts = np.array([out[q].scalar() for q in qids])
+        lat = np.array([m.latency_s for m in srv.log[-len(qids):]]) * 1e3
+        return (counts, len(seeds) / dt, float(np.percentile(lat, 50)),
+                float(np.percentile(lat, 99)), dt, got, var)
+
+    def per_kind(frac, base_keys, sym=False):
+        """Deletes (and creates) of a stream of ``frac`` of the base."""
+        return max(2, int(frac * len(base_keys)) // (4 if sym else 2))
+
+    def stream(mg, base_keys, n, k, rng, sym=False):
+        """One write stream: k deletes of base edges still live and k
+        creates of pairs absent from the base and the live set, as
+        commands of WRITE_COMMAND edges in a random order (both
+        directions of each pair with ``sym``)."""
+        live = [(s, d) for (s, d) in base_keys
+                if ("KNOWS", s, d) in mg.edges]
+        pick = rng.choice(len(live), k, replace=False)
+        dels = [live[i] for i in pick]
+        base_set = set(base_keys)
+        adds, seen = [], set()
+        while len(adds) < k:
+            a, b = (int(x) for x in rng.integers(0, n, 2))
+            if sym:
+                a, b = min(a, b), max(a, b)
+            if a != b and (a, b) not in base_set and (a, b) not in seen \
+                    and ("KNOWS", a, b) not in mg.edges \
+                    and ("KNOWS", b, a) not in mg.edges:
+                adds.append((a, b))
+                seen.add((a, b))
+        if sym:
+            dels += [(d, s) for s, d in dels]
+            adds += [(d, s) for s, d in adds]
+        cmds = []
+        for kind, pairs in (("DELETE", dels), ("CREATE", adds)):
+            for i in range(0, len(pairs), WRITE_COMMAND):
+                cmds.append(f"{kind} " + ", ".join(
+                    f"({s})-[:KNOWS]->({d})"
+                    for s, d in pairs[i:i + WRITE_COMMAND]))
+        order = rng.permutation(len(cmds))
+        return [cmds[i] for i in order], len(dels) + len(adds)
+
+    try:
+        # -- the write rounds: R-MAT s16, ELL (fmt="auto") and BSR (b=64) --
+        src, dst, n = rmat_edges(WRITE_SCALE)
+        db = Database(data_dir=os.path.join(tmp, "aof"), device=DEVICE)
+        names = {"ell": "g", "bsr": "g_bsr"}
+        base_keys = None
+        for fmt, name in names.items():
+            mg = db._graph(name)
+            if fmt == "bsr":
+                mg.fmt = "bsr"                       # block 64, as in JAX
+            t0 = time.perf_counter()
+            for s, d in zip(src.tolist(), dst.tolist()):
+                mg.create_edge(s, "KNOWS", d)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            g = mg.freeze()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            A = g.relations["KNOWS"].A
+            check(A.fmt == "delta" and A.store.fmt == fmt,
+                  f"write_{fmt}: base {A.store.fmt}, want {fmt}")
+            check(A.store.device.type == torch.device(DEVICE).type,
+                  f"write_{fmt}: base on {A.store.device}")
+            if base_keys is None:
+                r_, c_, _ = A.store.to_coo()
+                base_keys = list(zip(r_.tolist(), c_.tolist()))
+            h.emit_phase(phase=f"write_load_{fmt}", card=card,
+                         scale=WRITE_SCALE, n=g.n, nnz=A.nvals,
+                         base=type(A.store.base).__name__,
+                         block=mg.block if fmt == "bsr" else None,
+                         load_s=load_s, build_s=build_s,
+                         aof="the bulk load goes through "
+                             "MutableGraph.create_edge and is not in the AOF",
+                         memory_allocated_gb=torch.cuda.memory_allocated()
+                         / 1e9)
+            del g, A
+        rng = np.random.default_rng(SEED)
+        seeds_rng = np.random.default_rng(SEED + 1)
+        for rnd in range(1, WRITE_ROUNDS + 1):
+            cmds, edges = stream(db._graph("g"), base_keys, n,
+                                 per_kind(WRITE_FRAC, base_keys), rng)
+            deg = np.diff(live_csr(db._graph("g"), n).indptr)
+            seeds = seeds_rng.choice(np.nonzero(deg >= 1)[0], QUERIES,
+                                     replace=False)
+            W, answers = None, {}
+            for fmt, name in names.items():
+                mg = db._graph(name)
+                reader = db.context(name)            # frozen before the round
+                snap = serve(reader.graph, seeds[:CHECKED], f"snapshot {fmt}",
+                             warm=False)
+                # the writes: every command fsynced before query returns
+                t0 = time.perf_counter()
+                for c in cmds:
+                    db.query(name, c)
+                write_s = time.perf_counter() - t0
+                comp0 = mg.compactions
+                t0 = time.perf_counter()
+                g = mg.freeze()
+                freeze_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                rels = [g.relations["KNOWS"].A, g.relations["KNOWS"].A.T,
+                        g.adj.A, g.adj.A.T]
+                for a in rels:
+                    a.store.patch()
+                torch.cuda.synchronize()
+                patch_s = time.perf_counter() - t0
+                dm = rels[0].store
+                pending = dm.pending / max(dm.base_nnz, 1)
+                folded = mg.compactions - comp0
+                check(mg.rebuilds == 1, f"write_{fmt} round {rnd}: "
+                      f"{mg.rebuilds} rebuilds")
+                # pending after round r is r * WRITE_FRAC of the base: the
+                # first round past the threshold folds both relation pairs
+                # (KNOWS and the union adjacency)
+                want_c = 2 if rnd * WRITE_FRAC > AUTO_DELTA_COMPACT \
+                    >= (rnd - 1) * WRITE_FRAC else 0
+                check(folded == want_c, f"write_{fmt} round {rnd}: "
+                      f"{folded} compactions, want {want_c}")
+                counts, qps, p50, p99, dt, got, var = serve(
+                    db.server(name), seeds, f"write_{fmt} round {rnd}")
+                kernel = "ell_mxv_packed" if fmt == "ell" else "bsr_mxm"
+                check(got[kernel] > 0, f"write_{fmt} round {rnd}: {kernel} "
+                      f"never launched")
+                if W is None:
+                    W = live_csr(mg, n)
+                answers[fmt] = counts
+                pick = np.random.default_rng(rnd).choice(QUERIES, CHECKED,
+                                                         replace=False)
+                for i in pick:
+                    want = reach_12(W, int(seeds[i]))
+                    check(int(counts[i]) == want, f"write_{fmt} round {rnd}: "
+                          f"seed {seeds[i]} counts {counts[i]}, want {want}")
+                dT = rels[1].store              # the hops' transpose twin
+                if fmt == "ell" and dT.pending:
+                    # kernel 1 on the patch the hops ran: the touched rows'
+                    # ELL, rows and width bucketed to powers of two
+                    patch = dT.patch()[0]
+                    shapes["ell_mxv_packed"][f"patch_round_{rnd}"] = \
+                        h.ell_case(patch, MAX_WIDTH // 32,
+                                   f"scale-{WRITE_SCALE} delta patch, round "
+                                   f"{rnd}: {patch.shape[0]} rows "
+                                   f"({dT.touched} touched) x "
+                                   f"{patch.max_deg} slots, W="
+                                   f"{MAX_WIDTH // 32}", timed=True,
+                                   earlier=False)
+                    del patch
+                if fmt == "bsr" and rnd == 1:
+                    # kernel 3 on the twin's 64-tile base, hop 2 of one
+                    # batch: unmasked while deltas are pending (the mask
+                    # is applied after the patch's rows), <!visited> once
+                    # compacted (round 3 serves the base alone)
+                    base = dT.base
+                    B0 = torch.zeros((base.shape[1], MAX_WIDTH),
+                                     device=DEVICE)
+                    B0[torch.from_numpy(seeds[:MAX_WIDTH]).to(DEVICE),
+                       torch.arange(MAX_WIDTH, device=DEVICE)] = 1.0
+                    X1 = bsr_mxm.bsr_mxm(base, B0, S.OR_AND, mask=B0,
+                                         complement=True)
+                    visited = torch.maximum(B0, X1)
+                    tag = (f"scale-{WRITE_SCALE} 64-tile transpose base "
+                           f"F={MAX_WIDTH}, hop 2")
+                    shapes["bsr_mxm"]["delta_hop"] = h.bsr_mxm_case(
+                        base, X1, S.OR_AND, f"{tag} (delta rounds)",
+                        timed=True, with_tile=False)
+                    shapes["bsr_mxm"]["compacted_hop"] = h.bsr_mxm_case(
+                        base, X1, S.OR_AND, f"{tag} <!visited> (round 3)",
+                        mask=visited, complement=True, timed=True,
+                        with_tile=False)
+                    del base, B0, X1, visited
+                again = serve(reader.graph, seeds[:CHECKED],
+                              f"snapshot {fmt}", warm=False)
+                check(np.array_equal(again[0], snap[0]),
+                      f"write_{fmt} round {rnd}: the snapshot moved")
+                del reader
+                # the same graph compacted: every answer equal
+                t0 = time.perf_counter()
+                gc_ = compacted(g)
+                torch.cuda.synchronize()
+                compact_s = time.perf_counter() - t0
+                ccounts, cqps, cp50, cp99, _, _, _ = serve(
+                    gc_, seeds, f"compacted {fmt} round {rnd}")
+                check(np.array_equal(ccounts, counts),
+                      f"write_{fmt} round {rnd}: delta-served answers differ "
+                      f"from the compacted graph's")
+                del gc_
+                h.emit_phase(
+                    phase=f"write_round_{fmt}", card=card, round=rnd,
+                    scale=WRITE_SCALE, commands=len(cmds), edges=edges,
+                    write_s=write_s, write_edges_per_s=edges / write_s,
+                    write_commands_per_s=len(cmds) / write_s,
+                    fsync="every command, before Database.query returns",
+                    freeze_ms=1e3 * freeze_s, patch_ms=1e3 * patch_s,
+                    compaction_s=freeze_s if folded else None,
+                    catch_up_ms=1e3 * (freeze_s + patch_s),
+                    pending_share=pending, touched_rows=dm.touched,
+                    compactions=mg.compactions, rebuilds=mg.rebuilds,
+                    compacted_this_round=folded,
+                    queries=QUERIES, qps=qps, p50_ms=p50, p99_ms=p99,
+                    compacted_qps=cqps, compacted_p50_ms=cp50,
+                    compacted_p99_ms=cp99, compact_view_s=compact_s,
+                    launches={k: v for k, v in got.items() if v},
+                    variants={k: v for k, v in var.items() if v},
+                    checked=CHECKED, snapshot_still=True,
+                    equal_to_compacted=True)
+                del g, rels, dm
+                h.release()
+            check(np.array_equal(answers["ell"], answers["bsr"]),
+                  f"write round {rnd}: the ELL and BSR graphs disagree")
+
+        # -- writes interleaved with reads: one command, then one batch ----
+        # right after round 3's compaction, then past a bulk write of
+        # INTERLEAVE_BULK; each step's latency holds the fsynced write,
+        # the server's re-freeze (apply_ops) and the patch built anew
+        irng = np.random.default_rng(SEED + 6)
+        deg = np.diff(live_csr(db._graph("g"), n).indptr)
+        iseeds = seeds_rng.choice(np.nonzero(deg >= 1)[0], MAX_WIDTH,
+                                  replace=False)
+        servers = {fmt: db.server(name) for fmt, name in names.items()}
+        for stage, bulk in (("after_compaction", 0.0),
+                            ("bulk_pending", INTERLEAVE_BULK)):
+            bulk_edges = 0
+            if bulk:
+                cmds, bulk_edges = stream(db._graph("g"), base_keys, n,
+                                          per_kind(bulk, base_keys), irng)
+                for name in names.values():
+                    for c in cmds:
+                        db.query(name, c)
+            # INTERLEAVE_STEPS commands of WRITE_COMMAND edges, half
+            # DELETE and half CREATE, in a random order
+            steps, _ = stream(db._graph("g"), base_keys, n,
+                              WRITE_COMMAND * INTERLEAVE_STEPS // 2, irng)
+            row = dict(phase="write_interleaved", card=card, stage=stage,
+                       scale=WRITE_SCALE, bulk_edges=bulk_edges,
+                       command_edges=WRITE_COMMAND, reads=MAX_WIDTH,
+                       fsync="every command, before Database.query returns")
+            last = {}
+            for fmt, name in names.items():
+                mg, srv = db._graph(name), servers[fmt]
+                comp0 = mg.compactions
+                # the same batch with nothing written before it
+                quiet = serve(srv, iseeds, f"interleaved {fmt} quiet")
+                pts = []
+                for c in steps:
+                    t0 = time.perf_counter()
+                    db.query(name, c)
+                    write_s = time.perf_counter() - t0
+                    counts, _, p50, p99, dt, got, _ = serve(
+                        srv, iseeds, f"interleaved {fmt}", warm=False)
+                    step_s = time.perf_counter() - t0
+                    dm = mg.freeze().relations["KNOWS"].A.T.store
+                    pts.append({"write_ms": 1e3 * write_s,
+                                "batch_ms": 1e3 * dt,
+                                "step_ms": 1e3 * step_s, "p50_ms": p50,
+                                "p99_ms": p99,
+                                "pending_share": dm.pending / dm.base_nnz,
+                                "touched_rows": dm.touched,
+                                "launches": {k: v for k, v in got.items()
+                                             if v}})
+                check(mg.compactions == comp0 and mg.rebuilds == 1,
+                      f"interleaved {fmt}: {mg.compactions - comp0} "
+                      f"compactions, {mg.rebuilds} rebuilds")
+                last[fmt] = counts
+                row[fmt] = {"quiet_batch_ms": 1e3 * quiet[4],
+                            "quiet_p50_ms": quiet[2],
+                            "quiet_p99_ms": quiet[3], "steps": pts}
+            check(np.array_equal(last["ell"], last["bsr"]),
+                  f"interleaved {stage}: the ELL and BSR graphs disagree")
+            W = live_csr(db._graph("g"), n)
+            for i in range(0, MAX_WIDTH, MAX_WIDTH // CHECKED):
+                want = reach_12(W, int(iseeds[i]))
+                check(int(last["ell"][i]) == want, f"interleaved {stage}: "
+                      f"seed {iseeds[i]} counts {last['ell'][i]}, want {want}")
+            row["checked"] = CHECKED
+            h.emit_phase(**row)
+        del db, servers, mg, srv, dm
+        h.release()
+
+        # -- read cost against the pending share (the delta.py claim) ------
+        us, ud = unique_edges(src, dst, n)
+        for fmt in ("ell", "bsr"):
+            base = grb.GBMatrix.from_coo(us, ud, None, (n, n), fmt=fmt,
+                                         block=64, device=DEVICE).store
+            br, bc = us, ud
+            # small integers: every sum is exact, so delta and compacted
+            # agree bit for bit whatever their summation order
+            x1 = torch.randint(0, 4, (n, 1), device=DEVICE).to(torch.float32)
+            X = torch.zeros((n, MAX_WIDTH), device=DEVICE)
+            X[torch.arange(MAX_WIDTH), torch.arange(MAX_WIDTH)] = 1.0
+            if fmt == "bsr":
+                shapes["bsr_mxm"]["read_cost_mxv"] = h.bsr_mxm_case(
+                    base, x1, S.PLUS_TIMES, f"scale-{WRITE_SCALE} 64-tile "
+                    f"base F=1 (the read cost's mxv)", timed=True,
+                    with_tile=False)
+            crng = np.random.default_rng(SEED + 2)
+            row = dict(phase=f"write_read_cost_{fmt}", card=card,
+                       scale=WRITE_SCALE, nnz=base.nnz, points=[])
+            for pct in READ_COST_PENDING:
+                k = int(pct * base.nnz) // 2
+                pick = crng.choice(len(br), k, replace=False)
+                ops = [("del", int(br[i]), int(bc[i]), 0.0) for i in pick]
+                ops += [("add", int(a), int(b), 1.0)
+                        for a, b in crng.integers(0, n, (k, 2))]
+                t0 = time.perf_counter()
+                dm = DeltaMatrix.wrap(base).apply_ops(ops)
+                apply_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                dm.patch()
+                torch.cuda.synchronize()
+                patch_s = time.perf_counter() - t0
+                hd = grb.GBMatrix(dm)
+                t0 = time.perf_counter()
+                hc = grb.GBMatrix(dm.materialize())
+                torch.cuda.synchronize()
+                materialize_s = time.perf_counter() - t0
+                pt = {"pending": pct, "pending_entries": dm.pending,
+                      "touched_rows": dm.touched, "apply_ops_s": apply_s,
+                      "patch_s": patch_s, "compact_s": materialize_s}
+                for what, sr, B in (("plus_times_mxv", S.PLUS_TIMES, x1),
+                                    ("or_and_F512", S.OR_AND, X)):
+                    yd = grb.mxm(hd, B, sr)
+                    yc = grb.mxm(hc, B, sr)
+                    torch.cuda.synchronize()
+                    check(torch.equal(yd, yc), f"read cost {fmt} {pct}: "
+                          f"{sr.name} delta != compacted")
+                    td = time_ms(torch, lambda: grb.mxm(hd, B, sr), reps=5)
+                    tc = time_ms(torch, lambda: grb.mxm(hc, B, sr), reps=5)
+                    pt[what] = {"delta_ms": td, "compacted_ms": tc,
+                                "ratio": td / tc}
+                row["points"].append(pt)
+                del dm, hd, hc, yd, yc
+                h.release()
+            h.emit_phase(**row)
+            del base, X, x1
+            h.release()
+
+        # -- the algorithms on a delta handle: undirected R-MAT s14 BSR ----
+        asrc, adst, an = rmat_edges(WRITE_ALGO_SCALE)
+        keep = asrc != adst
+        us = np.concatenate([asrc[keep], adst[keep]])
+        ud = np.concatenate([adst[keep], asrc[keep]])
+        adb = Database(device=DEVICE)
+        mg = adb._graph("u")
+        mg.fmt = "bsr"
+        for s, d in zip(us.tolist(), ud.tolist()):
+            mg.create_edge(s, "KNOWS", d)
+        g0 = mg.freeze()
+        r_, c_, _ = g0.relations["KNOWS"].A.store.to_coo()
+        ukeys = [(s, d) for s, d in zip(r_.tolist(), c_.tolist()) if s < d]
+        cmds, edges = stream(mg, ukeys, an,
+                             per_kind(2 * WRITE_FRAC, ukeys, sym=True),
+                             np.random.default_rng(SEED + 3), sym=True)
+        for c in cmds:
+            adb.query("u", c)
+        del g0
+        g = mg.freeze()
+        Ad = g.relations["KNOWS"].A
+        check(Ad.fmt == "delta" and Ad.store.pending > 0,
+              "algo_delta: no pending delta")
+        Ac = compacted(g).relations["KNOWS"].A
+        an = Ad.shape[0]                 # ids past the last edge unused
+        W = live_csr(mg, an)
+        srcs = np.arange(0, an, an // 64)[:64]
+        results = {}
+        for name, fn, exact in (
+                ("bfs_levels", lambda A: algo.bfs_levels(A, srcs), True),
+                ("sssp", lambda A: algo.sssp(A, srcs), True),
+                ("wcc", lambda A: algo.wcc(A), True),
+                ("triangle_count", lambda A: algo.triangle_count(A), True),
+                ("pagerank", lambda A: algo.pagerank(A, iters=20), False)):
+            got, dt, launched, var = counted(lambda: fn(Ad))
+            want, dtc, _, _ = counted(lambda: fn(Ac))
+            if exact:
+                check(torch.equal(got, want),
+                      f"algo_delta {name}: delta != compacted")
+            else:
+                err = float((got - want).abs().max())
+                check(err <= 1e-5, f"algo_delta {name}: {err} > 1e-5")
+            results[name] = {"delta_s": dt, "compacted_s": dtc,
+                             "launches": {k: v for k, v in launched.items()
+                                          if v},
+                             "variants": {k: v for k, v in var.items() if v}}
+        base = Ad.T.store.base           # the pulls' 64-tile twin base
+        # the base's rows of SSSP's distances, as _mxm_delta gives them
+        # (the delta grew past the base's last id)
+        dist = algo.sssp(Ad, srcs)[:base.shape[1]]
+        shapes["bsr_mxm"]["sssp"] = h.bsr_mxm_case(
+            base, dist, S.MIN_PLUS, f"scale-{WRITE_ALGO_SCALE} 64-tile "
+            f"transpose base F={len(srcs)} (SSSP's relaxation on the "
+            f"delta)", timed=True, with_tile=False, library=None)
+        shapes["bsr_mxm"]["pagerank"] = h.bsr_mxm_case(
+            base, h.frontier(base.shape[1], 1, 1), S.PLUS_TIMES,
+            f"scale-{WRITE_ALGO_SCALE} 64-tile transpose base F=1 "
+            f"(PageRank's pull on the delta)", timed=True, with_tile=False)
+        del base, dist
+        tri = int(counted(lambda: algo.triangle_count(Ad))[0])
+        check(tri == int(round((W @ W).multiply(W).sum() / 6)),
+              "algo_delta triangle_count != scipy")
+        _, comp = csgraph.connected_components(W, directed=False)
+        labels = algo.wcc(Ad).cpu().numpy()
+        check(len(np.unique(labels)) == comp.max() + 1,
+              "algo_delta wcc: component count != scipy's")
+        check(results["triangle_count"]["launches"].get("bsr_spgemm", 0) > 0,
+              "algo_delta: bsr_spgemm never launched")
+        T, kt_s, klaunch, kvar = counted(lambda: algo.ktruss(Ad, 4))
+        Tc = algo.ktruss(Ac, 4)
+        check(torch.equal(T.to_dense(), Tc.to_dense()),
+              "algo_delta ktruss(4): delta != compacted")
+        check(klaunch["bsr_ewise"] > 0 and klaunch["bsr_spgemm"] > 0,
+              "algo_delta ktruss: bsr_ewise / bsr_spgemm never launched")
+        results["ktruss_4"] = {"delta_s": kt_s, "edges": T.nvals,
+                               "launches": {k: v for k, v in klaunch.items()
+                                            if v},
+                               "variants": {k: v for k, v in kvar.items()
+                                            if v}}
+        h.emit_phase(phase="write_algorithms", card=card, fmt="bsr",
+                     block=mg.block, scale=WRITE_ALGO_SCALE, n=an,
+                     nnz=Ad.nvals, write_edges=edges,
+                     pending_share=Ad.store.pending / Ad.store.base_nnz,
+                     triangles=tri, results=results)
+        del g, Ad, Ac, T, Tc, adb, mg
+        h.release()
+
+        # -- recovery: an R-MAT s12 graph written through CREATE -----------
+        rsrc, rdst, rn = rmat_edges(RECOVERY_SCALE)
+        rdir = os.path.join(tmp, "recovery")
+        rdb = Database(data_dir=rdir, device=DEVICE)
+        pairs = list(zip(rsrc.tolist(), rdst.tolist()))
+        t0 = time.perf_counter()
+        ncmd = 0
+        for i in range(0, len(pairs), WRITE_COMMAND):
+            rdb.query("r", "CREATE " + ", ".join(
+                f"({s})-[:KNOWS]->({d})" for s, d in
+                pairs[i:i + WRITE_COMMAND]))
+            ncmd += 1
+        create_s = time.perf_counter() - t0
+        rmg = rdb._graph("r")
+        rg = rmg.freeze()
+        r_, c_, _ = rg.relations["KNOWS"].A.to_coo()
+        rkeys = list(zip(r_.tolist(), c_.tolist()))
+        cmds, edges = stream(rmg, rkeys, rn, per_kind(WRITE_FRAC, rkeys),
+                             np.random.default_rng(SEED + 4))
+        for c in cmds:
+            rdb.query("r", c)
+        ncmd += len(cmds)
+        seeds = np.arange(0, rn, rn // CHECKED)[:CHECKED]
+        live = serve(rdb.server("r"), seeds, "recovery live")[0]
+        live_coo = rdb._graph("r").freeze().relations["KNOWS"].A.to_coo()
+        del rdb, rmg, rg
+        t0 = time.perf_counter()
+        back = Database(data_dir=rdir, device=DEVICE)
+        replay_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bg = back._graph("r").freeze()
+        torch.cuda.synchronize()
+        first_freeze_s = time.perf_counter() - t0
+        replayed = serve(back.server("r"), seeds, "recovery replayed")[0]
+        check(np.array_equal(replayed, live), "recovery: replayed answers "
+              "differ from the live database's")
+        for a, b in zip(bg.relations["KNOWS"].A.to_coo(), live_coo):
+            check(np.array_equal(a, b), "recovery: replayed edges differ")
+        check(back._graph("r").rebuilds == 1, "recovery: replay rebuilt")
+        h.emit_phase(phase="write_recovery", card=card, scale=RECOVERY_SCALE,
+                     n=rn, nnz=bg.relations["KNOWS"].nnz, commands=ncmd,
+                     create_s=create_s, write_edges=edges,
+                     replay_s=replay_s, first_freeze_s=first_freeze_s,
+                     aof_bytes=os.path.getsize(os.path.join(rdir, "r.aof")),
+                     equal=True)
+        del back, bg
+        h.release()
+
+        # -- dense handles: R-MAT s12 on the card against its ELL ----------
+        dsrc, ddst, dn = rmat_edges(DENSE_SCALE)
+        dsrc, ddst = unique_edges(dsrc, ddst, dn)
+        Dh = grb.GBMatrix.from_coo(dsrc, ddst, None, (dn, dn), fmt="dense",
+                                   device=DEVICE)
+        Eh = grb.GBMatrix.from_coo(dsrc, ddst, None, (dn, dn), fmt="ell",
+                                   device=DEVICE)
+        check(Dh.fmt == "dense" and Dh.nvals == Eh.nvals, "dense: handle")
+        drng = np.random.default_rng(SEED + 5)
+        Xd = torch.from_numpy((drng.random((dn, 64)) < 0.05).astype(
+            np.float32)).to(DEVICE)
+        Xw = torch.from_numpy((drng.random((dn, 32)) * 4).astype(
+            np.float32).round()).to(DEVICE)
+        dense_ms = {}
+        for sr, B, exact in ((S.OR_AND, Xd, True), (S.MIN_PLUS, Xw, True),
+                             (S.PLUS_TIMES, Xw, False)):
+            for d in (grb.NULL, grb.TRANSPOSE_A):
+                got = grb.mxm(Dh, B, sr, d)
+                want = grb.mxm(Eh, B, sr, d)
+                torch.cuda.synchronize()
+                check(got.device.type == torch.device(DEVICE).type,
+                      "dense: product off the card")
+                if exact:
+                    check(torch.equal(got, want), f"dense {sr.name}: != ELL")
+                else:
+                    check(float((got - want).abs().max()) <= 1e-5,
+                          f"dense {sr.name}: differs from ELL past 1e-5")
+            dense_ms[sr.name] = wall_ms(torch, lambda: grb.mxm(Dh, B, sr))
+        from repro_torch.core import bitmap
+        bw = bitmap.pack(Xd)
+        for t in (False, True):
+            check(torch.equal(grb.mxm_words(Dh, bw, transpose_a=t),
+                              grb.mxm_words(Eh, bw, transpose_a=t)),
+                  "dense mxm_words != ELL's")
+        for m in (S.PLUS, S.OR, S.MIN, S.MAX):
+            for ax in (None, 0, 1):
+                check(torch.equal(grb.reduce(Dh, m, axis=ax),
+                                  grb.reduce(Eh, m, axis=ax)),
+                      f"dense reduce {m.name} axis {ax} != ELL's")
+        wd, wcc_s, _, _ = counted(lambda: algo.wcc(Dh))
+        check(torch.equal(wd, algo.wcc(Eh)), "dense wcc != ELL's")
+        h.emit_phase(phase="write_dense", card=card, scale=DENSE_SCALE, n=dn,
+                     nnz=Dh.nvals, bytes=dn * dn * 4, mxm_ms=dense_ms,
+                     wcc_s=wcc_s, equal=True)
+        del Dh, Eh, Xd, Xw, bw, wd
+        h.release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return words, shapes
+
+
 if __name__ == "__main__":
+    if "--seed" in sys.argv:
+        SEED = int(sys.argv[sys.argv.index("--seed") + 1])
     sys.exit(main())

@@ -12,11 +12,15 @@ primitives:
 iterated to a fixpoint (the pattern only shrinks). On BSR every step stays
 sparse: the support comes out of ``bsr_spgemm`` with <A> pruning output
 tiles, and the select (``bsr_ewise`` on the card) prunes emptied tiles.
-ELL handles are reblocked to BSR through their entry list first.
+ELL handles are reblocked to BSR through their entry list first, and a
+delta handle takes its materialization. A dense handle runs the same
+rounds on dense tensors (the JAX package's dense pipeline).
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from repro_torch.core import grb, semiring as S
 from repro_torch.core.bsr import BSR, as_bsr
@@ -29,8 +33,9 @@ def ktruss(A, k: int, rel: Optional[str] = None,
     support (common-neighbour count within the truss).
 
     A: Graph / Relation / GBMatrix / raw storage of a symmetric adjacency,
-    BSR or ELL. Self-loops are dropped first (they would add diagonal walk
-    terms to the support). k <= 2 returns the input unchanged.
+    BSR, ELL, delta or dense. Self-loops are dropped first (they would add
+    diagonal walk terms to the support). k <= 2 returns the input
+    unchanged.
     """
     A = grb.matrix(A, rel)
     n, m = A.shape
@@ -38,24 +43,31 @@ def ktruss(A, k: int, rel: Optional[str] = None,
         raise ValueError(f"ktruss needs a square adjacency, got {A.shape}")
     if k <= 2:
         return A
+    if A.fmt == "delta":
+        A = GBMatrix(A.store.materialize())
     if A.fmt == "ell":          # sparse-to-sparse reblock, no densification
         A = GBMatrix(as_bsr(A.store, 128))
-    if A.fmt != "bsr":
-        raise TypeError(f"ktruss takes BSR or ELL storage, got {A.fmt} "
-                        f"(the JAX package's dense branch has no port: "
-                        f"dense storage is not ported)")
-    r, c, v = A.store.to_coo()
-    loops = r == c
-    if loops.any():
-        A = GBMatrix(BSR.from_coo(r[~loops], c[~loops], v[~loops], A.shape,
-                                  block=A.store.block, device=A.store.device))
+    if A.fmt == "bsr":
+        r, c, v = A.store.to_coo()
+        loops = r == c
+        if loops.any():
+            A = GBMatrix(BSR.from_coo(r[~loops], c[~loops], v[~loops],
+                                      A.shape, block=A.store.block,
+                                      device=A.store.device))
+    elif A.fmt == "dense":
+        D = A.store.to(torch.float32)
+        A = GBMatrix(D * (1.0 - torch.eye(n, dtype=torch.float32,
+                                          device=D.device)))
+    else:
+        raise TypeError(f"ktruss takes BSR, ELL, delta or dense storage, "
+                        f"got {A.fmt}")
     keep = S.ewise("ge", k - 2)
     rounds = 0
     while True:
         # plus_pair counts common neighbours; the mask <A> restricts both
         # the symbolic schedule and the element pattern to current edges
-        C = grb.mxm(A, A, S.PLUS_PAIR, Descriptor(mask=A))
-        T = grb.select(keep, C)
+        C = GBMatrix.wrap(grb.mxm(A, A, S.PLUS_PAIR, Descriptor(mask=A)))
+        T = GBMatrix.wrap(grb.select(keep, C))
         rounds += 1
         if T.nvals == A.nvals or T.nvals == 0:
             return T

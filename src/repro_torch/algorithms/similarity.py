@@ -88,17 +88,26 @@ def similarity_matrix(A, kind: str = "jaccard", rel=None,
     own edges): C<mask> = A (x)_plus_pair A, then a sparse ``ewise_mult``
     with the reciprocal denominators, assembled once on C's stored pattern
     from its host entry list. ELL and BitELL handles are reblocked to BSR
-    through their entry lists."""
+    through their entry lists, a delta handle takes its materialization;
+    a dense handle runs the dense pipeline and returns a dense handle."""
     _check_kind(kind)
     A = grb.matrix(A, rel)
     n, m = A.shape
     if n != m:
         raise ValueError(f"similarity_matrix needs a square adjacency, "
                          f"got {A.shape}")
+    if A.fmt == "delta":
+        A = GBMatrix(A.store.materialize())
     if A.fmt == "bitadj":
         A = GBMatrix(A.store.to_ell())
     if A.fmt == "ell":
         A = GBMatrix(as_bsr(A.store, 128))
+    if A.fmt == "dense":
+        # the dense pipeline: a dense count product, normalized whole
+        deg = degrees(A)
+        C = grb.mxm(A, A, S.PLUS_PAIR,
+                    Descriptor(mask=mask if mask is not None else A))
+        return GBMatrix(_normalize(kind, C, deg[:, None], deg[None, :]))
     deg = degrees(A).cpu().numpy()
     C = grb.mxm(A, A, S.PLUS_PAIR,
                 Descriptor(mask=mask if mask is not None else A))

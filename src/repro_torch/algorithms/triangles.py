@@ -6,7 +6,8 @@ sparse: ``grb.mxm`` runs the two-phase SpGEMM (``bsr_spgemm`` on the card)
 with the structural mask <A> pruning output tiles, then ``grb.reduce``
 sums the stored counts. ELL handles reblock to BSR through their entry
 list first (the JAX package multiplies them densely; the count is the
-same). BitELL handles skip the semiring: the masked plus_pair product is a
+same), a delta handle takes its materialization, and a dense handle runs
+the dense product. BitELL handles skip the semiring: the masked plus_pair product is a
 neighbourhood intersection, word-AND + SWAR popcount over tile pairs
 (``core.bitadj.triangle_count``).
 
@@ -27,6 +28,8 @@ def triangle_count(A, rel=None) -> torch.Tensor:
     """The number of triangles, a 0-d int64 tensor on the graph's
     device."""
     A = grb.matrix(A, rel)
+    if A.fmt == "delta":
+        A = GBMatrix(A.store.materialize())
     if A.fmt == "bitadj":
         total = _bitadj.triangle_count(A.store)
     else:

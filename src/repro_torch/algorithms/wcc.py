@@ -61,9 +61,13 @@ def wcc(A, max_iter: int = 0, rel=None, batch: int = 128) -> torch.Tensor:
         # zero-edge adjacency: every vertex is its own component
         return torch.arange(n, dtype=torch.int32, device=dev)
     labels = np.full(n, -1, dtype=np.int64)
-    # "or" over stored entries: any entry in the row or the column
-    iso = ((grb.reduce(A, S.OR, axis=1) == 0)
-           & (grb.reduce(A, S.OR, axis=0) == 0)).cpu().numpy()
+    if A.fmt == "dense":
+        D = A.store != 0
+        iso = (~(D.any(dim=1) | D.any(dim=0))).cpu().numpy()
+    else:
+        # "or" over stored entries: any entry in the row or the column
+        iso = ((grb.reduce(A, S.OR, axis=1) == 0)
+               & (grb.reduce(A, S.OR, axis=0) == 0)).cpu().numpy()
     labels[iso] = np.nonzero(iso)[0]
     while True:
         unlabeled = np.nonzero(labels < 0)[0]

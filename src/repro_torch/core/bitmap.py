@@ -36,10 +36,30 @@ def _to_int32_words(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
 
 
+def payload_bytes(rows: int, f: int, packed: bool) -> int:
+    """Bytes of one (rows, F) frontier: float32 indicators (4 bytes an
+    entry) unpacked, 32-bit words packed."""
+    if packed:
+        return rows * n_words(f) * 4
+    return rows * f * 4
+
+
+def payload_reduction(f: int) -> float:
+    """Unpacked over packed bytes of an F-wide frontier (-> 32x as F
+    grows; >= 8x from F = 8)."""
+    return payload_bytes(1, f, packed=False) / payload_bytes(1, f, packed=True)
+
+
 def pack(x: torch.Tensor) -> torch.Tensor:
     """(n, F) anything-numeric -> (n, ceil(F/32)) int32 words (uint32 bit
     pattern). Distinct bit weights sum in int64, then wrap to int32."""
     _pack_calls[0] += 1
+    return _pack_words(x)
+
+
+def _pack_words(x: torch.Tensor) -> torch.Tensor:
+    """:func:`pack` without the policy counter (products that re-pack
+    their own partial results)."""
     n, f = x.shape
     w = n_words(f)
     bits = torch.zeros((n, w * WORD_BITS), dtype=torch.int64, device=x.device)

@@ -1,22 +1,25 @@
 """The GraphBLAS operation surface ``C<M> accum= op(A, B, desc)``, over torch.
 
-Port of ``repro.core.grb``, cut to what the k-hop MATCH path reaches:
+Port of ``repro.core.grb`` (all but the sharded kinds):
 
   Descriptor / finalize   the write blend (mask, complement, accum,
                           replace, transpose_a);
-  GBMatrix                one handle over BSR, ELL or BitELL storage, with
-                          a linked stored transpose (``.T``); ``with_impl``
-                          is a no-op kept for parity;
+  GBMatrix                one handle over dense, BSR, ELL, BitELL or delta
+                          storage, with a linked stored transpose (``.T``);
+                          ``with_impl`` is a no-op kept for parity;
   mxm                     the semiring matmul on a dense (k, F) frontier:
                           BSR through ``kernels.bsr_mxm`` with a pure
                           masked write fused into its epilogue, ELL float
-                          route, or the bitmap-packed or_and route; BitELL
-                          under a non-or_and semiring takes the cached
-                          materialize-to-ELL fallback; BSR x BSR (a sparse
-                          B handle) through SpGEMM, staying BSR;
+                          route, the bitmap-packed or_and route (ELL,
+                          dense), the dense semiring product; BitELL under
+                          a non-or_and semiring takes the cached
+                          materialize-to-ELL fallback; a delta handle
+                          composes its base's product with its patch's
+                          (``_mxm_delta``); BSR x BSR (a sparse B handle)
+                          through SpGEMM, staying BSR;
   mxm_words               packed words in, packed words out — the per-hop
-                          call of word-resident hop loops (BSR detours
-                          through the float mxm on the device);
+                          call of word-resident hop loops (BSR and delta
+                          detour through the float mxm on the device);
   words_route_ok          the gate for those loops;
   mxv / vxm               width-1 products through ``mxm``;
   ewise_add / ewise_mult  the element-wise family over stored entries
@@ -33,9 +36,12 @@ variants (``MXM_ENTRY_MAX_FILL``, ``EWISE_ENTRY_MAX_FILL``, measured on
 the card), on the CPU between their plain versions. The JAX package's ``grb`` runs its BSR element-wise plans
 through XLA; the port's launch ``bsr_ewise`` on the card. Element-wise
 ops on BSR operands are named (``semiring.ewise`` or a Monoid); dense
-tensors and ELL take any callable. Dense storage handles, delta and
-sharded storage are not ported yet; dense operands of the element-wise
-family are raw tensors.
+tensors and ELL take any callable. Dense handles hold a 2-D tensor and
+compute in plain torch (the JAX package runs them through XLA, outside
+any Pallas kernel); the element-wise family returns raw tensors for dense
+operands. Delta handles (``core.delta``) compose the matmul family and
+the plus / or reductions from their base and a row patch, and take a
+materialization, folded per call, elsewhere. Sharded storage is not ported.
 """
 from __future__ import annotations
 
@@ -54,9 +60,10 @@ from repro_torch.core import semiring as S
 from repro_torch.core import xfer as _xfer
 from repro_torch.core.bitadj import BitELL
 from repro_torch.core.bsr import BSR, SPGEMM_MODES as _SPGEMM_MODES
+from repro_torch.core.delta import DeltaMatrix
 from repro_torch.core.ell import ELL
 
-Storage = Union[BSR, ELL, BitELL]
+Storage = Union[BSR, ELL, BitELL, DeltaMatrix, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
@@ -126,10 +133,14 @@ def _fmt_of(store) -> str:
         return "ell"
     if isinstance(store, BitELL):
         return "bitadj"
+    if isinstance(store, DeltaMatrix):
+        return "delta"
+    if isinstance(store, torch.Tensor) and store.dim() == 2:
+        return "dense"
     raise NotImplementedError(
         f"storage {type(store).__name__} is not ported yet: the port holds "
-        f"BSR, ELL and BitELL handles (ROADMAP 'Modules to port': dense "
-        f"storage, delta storage in item 9, sharded storage in item 10)")
+        f"dense (a 2-D torch tensor), BSR, ELL, BitELL and delta handles; "
+        f"sharded storage waits for the mesh (ROADMAP item 10)")
 
 
 # -- the card's crossovers between the entry and tile kernels of bsr_mxm
@@ -173,10 +184,10 @@ def _pack_wanted(f: int) -> bool:
 
 
 class GBMatrix:
-    """One matrix handle over BSR / ELL / BitELL storage, with a lazily
-    built or explicitly linked stored transpose (``A.T``). The route is
-    chosen by where the storage lies (CUDA kernel or plain version), so the
-    handle carries no execution policy."""
+    """One matrix handle over dense / BSR / ELL / BitELL / delta storage,
+    with a lazily built or explicitly linked stored transpose (``A.T``).
+    The route is chosen by where the storage lies (CUDA kernel or plain
+    version), so the handle carries no execution policy."""
     __slots__ = ("store", "fmt", "name", "_T")
 
     def __init__(self, store: Storage, name: str = ""):
@@ -192,21 +203,63 @@ class GBMatrix:
         """Adopt an existing handle or wrap raw storage."""
         return A if isinstance(A, GBMatrix) else cls(A)
 
+    @classmethod
+    def from_coo(cls, rows, cols, vals, shape, fmt: str = "auto",
+                 block: int = 128, name: str = "",
+                 device="cuda") -> "GBMatrix":
+        """A handle built from an entry list (numpy or sequences) in
+        ``fmt`` ("dense", "bsr", "ell", "bitadj" or "auto"), on
+        ``device``."""
+        if fmt == "bsr":
+            store = BSR.from_coo(rows, cols, vals, shape, block=block,
+                                 device=device)
+        elif fmt == "ell":
+            store = ELL.from_coo(rows, cols, vals, shape, device=device)
+        elif fmt == "bitadj":
+            store = BitELL.from_coo(rows, cols, vals, shape, device=device)
+        elif fmt == "dense":
+            d = np.zeros(shape, dtype=np.float32)
+            d[np.asarray(rows, np.int64), np.asarray(cols, np.int64)] = (
+                1.0 if vals is None else np.asarray(vals, dtype=np.float32))
+            store = torch.from_numpy(d).to(torch.device(device))
+        else:
+            store = _ops.auto_format(rows, cols, vals, shape, block=block,
+                                     device=device)
+        return cls(store, name=name)
+
+    @classmethod
+    def from_dense(cls, A, fmt: str = "dense", block: int = 128,
+                   name: str = "", device=None) -> "GBMatrix":
+        """A handle over a dense matrix (tensor or numpy), stored as
+        ``fmt``; on the tensor's device unless ``device`` is given (numpy
+        input defaults to ``"cuda"``)."""
+        if device is None:
+            device = A.device if isinstance(A, torch.Tensor) else "cuda"
+        if fmt == "dense":
+            return cls(torch.as_tensor(A).to(torch.device(device)), name=name)
+        A = A.cpu().numpy() if isinstance(A, torch.Tensor) else np.asarray(A)
+        r, c = np.nonzero(A)
+        return cls.from_coo(r, c, A[r, c], A.shape, fmt=fmt, block=block,
+                            name=name, device=device)
+
     @property
     def shape(self):
-        return self.store.shape
+        return tuple(self.store.shape)
 
     @property
     def nvals(self) -> int:
         """Stored-entry count (GrB_Matrix_nvals)."""
+        if self.fmt == "dense":
+            return int(torch.count_nonzero(self.store))
         return self.store.nnz
 
     @property
     def T(self) -> "GBMatrix":
         """Stored transpose, built once and cached; ``A.T.T is A``."""
         if self._T is None:
-            self.link_transpose(GBMatrix(self.store.transpose(),
-                                         name=self.name + "^T"))
+            t = (self.store.t().contiguous() if self.fmt == "dense"
+                 else self.store.transpose())
+            self.link_transpose(GBMatrix(t, name=self.name + "^T"))
         return self._T
 
     def link_transpose(self, other: "GBMatrix") -> "GBMatrix":
@@ -222,6 +275,18 @@ class GBMatrix:
         self."""
         del impl
         return self
+
+    def to_dense(self) -> torch.Tensor:
+        if self.fmt == "dense":
+            return self.store
+        return self.store.to_dense()
+
+    def __getattr__(self, attr: str):
+        # forward storage introspection (nnz / to_coo / device / ...) so
+        # the handle stands in for raw storage
+        if attr.startswith("_") or attr in GBMatrix.__slots__:
+            raise AttributeError(attr)
+        return getattr(self.store, attr)
 
     def __repr__(self) -> str:
         n, m = self.shape
@@ -253,13 +318,13 @@ def matrix(obj, rel: Optional[str] = None) -> GBMatrix:
 # ---------------------------------------------------------------------------
 def _packed_route_ok(A: GBMatrix, B: torch.Tensor, sr: S.Semiring) -> bool:
     """Gate for the bitmap-packed or_and route: boolean semiring, and ELL
-    with a frontier wide enough, or BitELL at any width (BSR keeps its
-    indicator tile product)."""
+    or dense storage with a frontier wide enough, or BitELL at any width
+    (BSR keeps its indicator tile product)."""
     if sr.mode != "dot_indicator" or B.dim() != 2:
         return False
     if A.fmt == "bitadj":
         return True                          # structural: words always win
-    return A.fmt == "ell" and _pack_wanted(B.shape[1])
+    return A.fmt in ("dense", "ell") and _pack_wanted(B.shape[1])
 
 
 def _mxm_packed(A: GBMatrix, B: torch.Tensor, sr: S.Semiring, d: Descriptor,
@@ -278,10 +343,12 @@ def _mxm_packed(A: GBMatrix, B: torch.Tensor, sr: S.Semiring, d: Descriptor,
 
 
 def _storage(x):
-    """A handle's store (BitELL as its cached ELL materialization); other
-    operands as they are."""
+    """A handle's store, BitELL as its cached ELL and delta storage as its
+    materialization (folded per call); other operands as they are."""
     if isinstance(x, GBMatrix):
         x = x.store
+    if isinstance(x, DeltaMatrix):
+        x = x.materialize()
     return x.to_ell() if isinstance(x, BitELL) else x
 
 
@@ -297,6 +364,16 @@ def _mask_as_bsr(mask, block: int) -> Optional[BSR]:
     return BSR.from_dense(mask, block=block)
 
 
+def _dense_mask(mask):
+    """A descriptor mask as the dense tensor a dense-B product blends with:
+    handles and sparse stores densify (delta masks through their
+    materialization)."""
+    if mask is None or isinstance(mask, torch.Tensor):
+        return mask
+    m = _storage(mask)
+    return m if isinstance(m, torch.Tensor) else m.to_dense()
+
+
 def _mxm_spgemm(A: GBMatrix, B: GBMatrix, sr: S.Semiring,
                 d: Descriptor) -> GBMatrix:
     """Sparse-times-sparse dispatch: C<M> = A (x) B with C staying BSR. The
@@ -308,33 +385,73 @@ def _mxm_spgemm(A: GBMatrix, B: GBMatrix, sr: S.Semiring,
     return GBMatrix(C, name=name)
 
 
+def _mxm_delta(A: GBMatrix, B: torch.Tensor, sr: S.Semiring, d: Descriptor,
+               out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Delta-composed semiring matmul, exact for every semiring with no
+    rebuild: result row i depends only on A's row i, so the rows no delta
+    touches come from the frozen base's product and the touched rows from
+    the product of a small ELL patch holding their exact effective content.
+    Rows past the base's extent (node growth) are the add identity unless
+    patched. Both products recurse through :func:`mxm`, so each keeps its
+    own route: the base's kernel (``bsr_mxm``, ``ell_mxv_packed``) and the
+    patch's ELL route, on the base's device. Only the patch's t real rows
+    scatter: its padding rows carry the out-of-bounds index n."""
+    dm: DeltaMatrix = A.store
+    baseh = GBMatrix(dm.base, name=A.name)
+    bn, bm = baseh.shape
+    n = dm.shape[0]
+    patch, rows = dm.patch()
+    if patch is None and n == bn:
+        return mxm(baseh, B, sr, d, out=out)        # empty delta: base as is
+    yb = mxm(baseh, B[:bm], sr)
+    if n > bn:
+        pad = torch.full((n - bn, yb.shape[1]), sr.identity, dtype=yb.dtype,
+                         device=yb.device)
+        yb = torch.cat([yb, pad], dim=0)
+    if patch is not None:
+        yp = mxm(GBMatrix(patch), B, sr)
+        t = dm.touched
+        yb = yb.index_copy(0, rows[:t].long(), yp[:t])
+    return finalize(d, yb, out, sr.identity)
+
+
 def mxm(A, B, sr: S.Semiring, d: Descriptor = NULL,
         out: Optional[torch.Tensor] = None):
-    """C<M> accum= A (x) B over a semiring. A: GBMatrix (or raw BSR / ELL /
-    BitELL). B: a dense (k, F) frontier (returns a dense C), or a BSR
-    handle when A is BSR (SpGEMM, returns a BSR handle; out must be None
-    and the semiring a dot mode). ``out`` is the existing C for
+    """C<M> accum= A (x) B over a semiring. A: GBMatrix (or raw storage).
+    B: a dense (k, F) frontier or dense handle (returns a dense C), or a
+    BSR handle when A is BSR (SpGEMM, returns a BSR handle; out must be
+    None and the semiring a dot mode); delta operands against a sparse B
+    take their materialization. ``out`` is the existing C for
     accum/blend, None meaning replace-into-empty."""
     A = GBMatrix.wrap(A)
     if d.transpose_a:
         A = A.T
         d = d.with_(transpose_a=False)
-    if isinstance(B, BSR):
+    if isinstance(B, (BSR, ELL, BitELL, DeltaMatrix)):
         B = GBMatrix(B)
     if isinstance(B, GBMatrix):
+        # delta operands against a handle compose through their
+        # materialization; against a dense frontier tensor, A stays delta
+        # and takes the row-patch route below
+        if A.fmt == "delta":
+            A = GBMatrix(A.store.materialize(), name=A.name)
+        if B.fmt == "delta":
+            B = GBMatrix(B.store.materialize(), name=B.name)
         if (A.fmt == "bsr" and B.fmt == "bsr" and out is None
                 and sr.mode in _SPGEMM_MODES):
             return _mxm_spgemm(A, B, sr, d)
-        raise TypeError(
-            f"grb.mxm: a sparse B multiplies only as BSR x BSR under a dot "
-            f"semiring with out=None (got {A.fmt} x {B.fmt}, {sr.name}); "
-            f"other sparse B operands are not ported yet")
+        if B.fmt != "dense":
+            raise TypeError(
+                f"grb.mxm: a sparse B multiplies only as BSR x BSR under a "
+                f"dot semiring with out=None (got {A.fmt} x {B.fmt}, "
+                f"{sr.name}); other sparse B operands are not ported yet")
+        B = B.store
     if not isinstance(B, torch.Tensor) or B.dim() != 2:
         raise TypeError("grb.mxm: B must be a dense (k, F) frontier tensor "
                         "or a BSR handle")
-    if d.mask is not None and not isinstance(d.mask, torch.Tensor):
-        raise TypeError("grb.mxm: with a dense B the port takes dense "
-                        "tensor masks only")
+    d = d.with_(mask=_dense_mask(d.mask))
+    if A.fmt == "delta":
+        return _mxm_delta(A, B, sr, d, out)
     if A.fmt == "bitadj" and not _packed_route_ok(A, B, sr):
         # weighted / non-indicator call on structural storage: the cached
         # materialize-to-ELL fallback
@@ -349,6 +466,8 @@ def mxm(A, B, sr: S.Semiring, d: Descriptor = NULL,
             return kops.bsr_mxm(A.store, B, sr, mask=d.mask,
                                 complement=d.complement)
         y = kops.bsr_mxm(A.store, B, sr)
+    elif A.fmt == "dense":
+        y = S.dense_mxm(S.structural_dense(A.store, sr), B, sr)
     else:
         y = _ops.ell_mxm(A.store, B, sr)
     return finalize(d, y, out, sr.identity)
@@ -365,10 +484,11 @@ def mxm_words(A, Bw: torch.Tensor, transpose_a: bool = False) -> torch.Tensor:
     (rows, W) words out. No descriptor: callers blend masks word-wise. ELL
     goes to ``kernels.ops.ell_mxv_packed``, BitELL to
     ``kernels.ops.bitadj_mxv_packed``; each launches its CUDA kernel for
-    CUDA tensors and runs its plain version for CPU tensors. BSR has no
-    packed route: it detours through the float mxm (the ``bsr_mxm``
-    kernel) on the device and re-packs; ``words_route_ok`` keeps hop loops
-    off that detour."""
+    CUDA tensors and runs its plain version for CPU tensors. Dense storage
+    takes ``core.ops.dense_mxm_packed``. BSR and delta storage have no
+    packed route: they detour through the float mxm (the ``bsr_mxm``
+    kernel, or the delta composition) on the device and re-pack;
+    ``words_route_ok`` keeps hop loops off that detour."""
     from repro_torch.kernels import ops as kops   # lazy: kernels import core
     A = GBMatrix.wrap(A)
     if transpose_a:
@@ -377,18 +497,21 @@ def mxm_words(A, Bw: torch.Tensor, transpose_a: bool = False) -> torch.Tensor:
         return kops.bitadj_mxv_packed(A.store, Bw)
     if A.fmt == "ell":
         return kops.ell_mxv_packed(A.store, Bw)
+    if A.fmt == "dense":
+        return _ops.dense_mxm_packed(A.store, Bw)
     f = Bw.shape[1] * _bitmap.WORD_BITS
     return _bitmap.pack(mxm(A, _bitmap.unpack(Bw, f), S.OR_AND))
 
 
 def words_route_ok(A, f: int) -> bool:
     """Gate for word-resident hop loops: BitELL always (the adjacency
-    itself is packed), ELL when the packing policy wants a width-``f``
-    frontier packed, BSR never (it keeps the float hop loop)."""
+    itself is packed), ELL and dense when the packing policy wants a
+    width-``f`` frontier packed, BSR and delta never (they keep the float
+    hop loop)."""
     A = GBMatrix.wrap(A)
     if A.fmt == "bitadj":
         return True
-    return A.fmt == "ell" and _pack_wanted(f)
+    return A.fmt in ("dense", "ell") and _pack_wanted(f)
 
 
 def _columnize(v) -> Optional[torch.Tensor]:
@@ -433,8 +556,10 @@ def vxm(x: torch.Tensor, A, sr: S.Semiring, d: Descriptor = NULL,
 
 def _operand_kind(x):
     """('bsr' | 'ell' | 'dense', storage) of a handle, store or tensor.
-    BitELL takes its cached ELL materialization; storage the port does not
-    hold raises NotImplementedError (``_fmt_of``)."""
+    BitELL takes its cached ELL materialization and delta storage its
+    materialization in the base's format (folded per call), so the whole element-wise
+    / extract / assign family sees the exact post-write entries; storage
+    the port does not hold raises NotImplementedError (``_fmt_of``)."""
     x = _storage(x)
     if isinstance(x, BSR):
         return "bsr", x
@@ -705,15 +830,52 @@ def _reduce_ell(e: ELL, monoid: S.Monoid, axis, dtype) -> torch.Tensor:
     return _finish(out[:m], monoid, dtype)
 
 
+def _reduce_delta(h: GBMatrix, monoid: S.Monoid, axis, dtype) -> torch.Tensor:
+    """Delta-composed reduce for plus / or, no rebuild: per row (axis 1)
+    the base's reduce with the patch's rows scattered over it (the row
+    decomposition of ``_mxm_delta``); per column (axis 0) the per-row
+    reduce of the linked transpose twin; the full reduction folds the
+    per-row vector. min / max, and axis 0 without a delta twin, take a
+    materialization."""
+    dm: DeltaMatrix = h.store
+    if monoid.name in ("plus", "or"):
+        if axis == 1:
+            rb = reduce(dm.base, monoid, axis=1, dtype=dtype)
+            if monoid.name == "or":
+                # "any stored entry" for every base (a dense base's raw
+                # max would leak non-indicator values)
+                rb = (rb != 0).to(dtype)
+            n, bn = dm.shape[0], dm.base.shape[0]
+            if n > bn:
+                rb = torch.cat([rb, torch.zeros(n - bn, dtype=rb.dtype,
+                                                device=rb.device)])
+            patch, rows = dm.patch()
+            if patch is None:
+                return rb
+            t = dm.touched
+            rp = _reduce_ell(patch, monoid, 1, dtype)
+            return rb.index_copy(0, rows[:t].long(), rp[:t])
+        if axis == 0 and h._T is not None and h._T.fmt == "delta":
+            return _reduce_delta(h._T, monoid, 1, dtype)
+        if axis is None:
+            tot = _reduce_delta(h, monoid, 1, torch.float64).sum()
+            return _finish(tot, monoid, dtype)
+    return reduce(dm.materialize(), monoid, axis=axis, dtype=dtype)
+
+
 def reduce(x, monoid: S.Monoid, axis=None,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Monoid reduction (GrB_reduce). Sparse operands reduce over *stored*
     entries without densifying for plus and or — full (axis None), per
     column (0) and per row (1); "or" means "any stored entry", right for
     negative values. min / max need the absent entries and go through
-    to_dense(). BitELL counts straight off its bit-tiles. Sparse plus
-    sums accumulate in float64; the result has ``dtype``."""
+    to_dense(). BitELL counts straight off its bit-tiles; delta operands
+    compose plus / or from their base and patch (``_reduce_delta``). Sparse
+    plus sums accumulate in float64; the result has ``dtype``."""
     s = x.store if isinstance(x, GBMatrix) else x
+    if isinstance(s, DeltaMatrix):
+        return _reduce_delta(x if isinstance(x, GBMatrix) else GBMatrix(s),
+                             monoid, axis, dtype)
     if (isinstance(s, BitELL) and monoid.name in ("plus", "or")
             and axis in (None, 0, 1)):
         return _bitadj.reduce_stored(s, monoid, axis, dtype)

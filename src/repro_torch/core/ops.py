@@ -2,6 +2,7 @@
 
 Port of ``repro.core.ops``:
 
+  apply_mask      the legacy kwargs spelling of ``grb.finalize``;
   bsr_mxm_plain   Y = A_bsr (x) X in the five semiring modes: batched tile
                   products and a segment reduction over block-rows, the
                   port of ``bsr_mxm_jnp`` and the plain version of the CUDA
@@ -11,9 +12,14 @@ Port of ``repro.core.ops``:
                   XLA outside any Pallas kernel, so it stays plain torch.
   ell_mxm_packed  the or_and gather-OR on packed frontier words: the plain
                   version of the CUDA kernel ``kernels.bitmap_mxv``.
+  dense_mxm_packed  the same for a dense A, over chunks of its columns.
+  mxm / mxv / vxm the legacy kwargs spelling of ``grb.mxm`` over raw
+                  storage.
   auto_format     the fmt="auto" storage choice.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,6 +32,16 @@ from repro_torch.core.ell import ELL
 # bsr_mxm_plain: the JAX reference gathers one X tile per stored tile at
 # once, (nnzb, b, F), which is 24.6 GB for Graph500 scale 16 at F = 512
 _CHUNK_ENTRIES = 1 << 27
+
+
+def apply_mask(result: torch.Tensor, mask: Optional[torch.Tensor],
+               complement: bool, accum: Optional[S.Monoid],
+               old: Optional[torch.Tensor], identity: float) -> torch.Tensor:
+    """GraphBLAS C<M> (+)= result, replace semantics when old is None: the
+    legacy kwargs spelling of :func:`repro_torch.core.grb.finalize`."""
+    from repro_torch.core import grb
+    d = grb.Descriptor(mask=mask, complement=complement, accum=accum)
+    return grb.finalize(d, result, old, identity)
 
 
 def _segment_reduce(vals: torch.Tensor, ids: torch.Tensor, num: int,
@@ -126,6 +142,62 @@ def ell_mxm_packed(A: ELL, Xw: torch.Tensor) -> torch.Tensor:
         keep = -A.mask[:, s].to(Xw.dtype)              # 0 or all ones
         acc |= Xw.index_select(0, A.indices[:, s]) & keep[:, None]
     return acc
+
+
+def dense_mxm_packed(A: torch.Tensor, Xw: torch.Tensor,
+                     k_chunk: int = 1024) -> torch.Tensor:
+    """Packed or_and product for a dense A: Yw[i] = OR_{j: A[i,j] != 0}
+    Xw[j]. K runs in chunks of ``k_chunk`` columns so no (n, k, W)
+    temporary forms whole; each chunk is an indicator product of A's
+    columns with the chunk's frontier rows unpacked to bits (a count of at
+    most ``k_chunk``, exact in float32), OR-ed into the words."""
+    from repro_torch.core import bitmap
+    n, k = A.shape
+    f = Xw.shape[1] * bitmap.WORD_BITS
+    acc = torch.zeros((n, Xw.shape[1]), dtype=Xw.dtype, device=Xw.device)
+    for start in range(0, k, k_chunk):
+        a = (A[:, start:start + k_chunk] != 0).to(torch.float32)
+        x = bitmap.unpack(Xw[start:start + k_chunk], f)
+        acc |= bitmap._pack_words(a @ x)
+    return acc
+
+
+def mxm(A, X: torch.Tensor, sr: S.Semiring, *,
+        mask: Optional[torch.Tensor] = None, complement: bool = False,
+        accum: Optional[S.Monoid] = None,
+        C: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Semiring matmul Y<mask> (accum)= A (x) X over raw storage or a
+    handle: the legacy kwargs spelling of :func:`repro_torch.core.grb.mxm`
+    (the JAX package's ``impl=`` has no counterpart: the route follows
+    where the tensors lie)."""
+    from repro_torch.core import grb
+    d = grb.Descriptor(mask=mask, complement=complement, accum=accum)
+    return grb.mxm(grb.GBMatrix.wrap(A), X, sr, d, out=C)
+
+
+def mxv(A, x: torch.Tensor, sr: S.Semiring, **kw) -> torch.Tensor:
+    """y = A (x) x for a single vector (a width-1 frontier)."""
+    y = mxm(A, x[:, None], sr, **{
+        k: (v[:, None] if k in ("mask", "C") and v is not None else v)
+        for k, v in kw.items()})
+    return y[:, 0]
+
+
+def vxm(x: torch.Tensor, A, sr: S.Semiring, *, A_T=None,
+        **kw) -> torch.Tensor:
+    """y = x (x) A == A^T (x) x; pass ``A_T`` (a stored transpose) when
+    there is one."""
+    target = A_T if A_T is not None else _transpose(A)
+    return mxv(target, x, sr, **kw)
+
+
+def _transpose(A):
+    from repro_torch.core import grb
+    if isinstance(A, grb.GBMatrix):
+        return A.T
+    if isinstance(A, torch.Tensor):
+        return A.t().contiguous()
+    return A.transpose()
 
 
 def auto_format(rows, cols, vals, shape, block: int = 128,

@@ -6,9 +6,10 @@ asynchronous the same way, and ``traverse`` returns a frontier whose
 kernels may still be running. The host waits at one point: the ``.cpu()``
 in ``_finish`` that copies a batch's frontier out for ``project``. On a
 CPU graph every call completes before it returns and the stats contract
-holds all the same. The server serves a frozen ``Graph`` or a zero-arg
-callable returning one; ``Database`` and ``MutableGraph`` sources wait for
-the write path's slice.
+holds all the same. The server serves a frozen ``Graph``, a zero-arg
+callable returning one, a ``MutableGraph`` or a ``Database`` (with
+``graph=``); the last two are re-frozen per batch, so writes committed
+between batches are visible to the next one.
 
 RedisGraph serves reads with a threadpool: W workers, W concurrent queries.
 The TPU analog is algebraic, not thread-based: pattern-compatible seeded
@@ -39,7 +40,9 @@ other tenant their answer; the queue always drains. A kernel that fails to
 build, load or launch (``kernels.KernelError``) fails its whole batch:
 every member reports it, and none is answered through another route.
 
-Serving a callable: every batch calls it and serves the Graph it returns;
+Serving a mutable source: every batch serves the freshest
+snapshot-consistent freeze (cached per write epoch upstream, so an
+unchanged graph reuses the same context). A callable is called per batch;
 a plain frozen `Graph` is served as-is.
 """
 from __future__ import annotations
@@ -108,16 +111,19 @@ def _aligned(width: int) -> int:
 class QueryServer:
     """Continuous-batching scheduler over `ExecutionContext`.
 
-    source     Graph (static) | zero-arg callable -> Graph (called per
-               batch).
+    source     Graph (static) | MutableGraph | Database (+ graph=name) |
+               zero-arg callable -> Graph. Non-Graph sources are re-frozen
+               (or called) per batch.
     max_width  admission cap: total frontier columns per sweep.
     max_batch  secondary cap on member count per sweep.
     align      pad sweep widths to packed-lane alignment (LANE_ALIGN).
     """
 
     def __init__(self, source, max_batch: int = 512,
-                 max_width: int = MAX_WIDTH, align: bool = True):
+                 max_width: int = MAX_WIDTH, align: bool = True,
+                 graph: Optional[str] = None):
         self._source = source
+        self._graph_name = graph
         self.max_batch = max_batch
         self.max_width = max_width
         self.align = align
@@ -223,9 +229,16 @@ class QueryServer:
             return src
         if callable(src):                   # refresh hook
             return src()
+        if hasattr(src, "freeze"):          # MutableGraph
+            return src.freeze()
+        if hasattr(src, "graphs"):          # Database
+            if self._graph_name is None:
+                raise TypeError("QueryServer(Database) needs graph=<name> "
+                                "(or use Database.server(name))")
+            return src._graph(self._graph_name).freeze()
         raise TypeError(
-            f"cannot serve {type(src).__name__}: expected Graph or a "
-            f"callable -> Graph")
+            f"cannot serve {type(src).__name__}: expected Graph, "
+            f"MutableGraph, Database (+graph=), or a callable -> Graph")
 
     def _next_chunk(self) -> List[Submitted]:
         """Admission control: pop one batch off the queue head. Unseeded

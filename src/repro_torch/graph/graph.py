@@ -7,7 +7,8 @@ transpose linked into each handle. Every tensor of a graph lies on one
 ``device``; ``build`` places it on ``"cuda"`` unless told otherwise.
 
 ``from_arrays`` adopts storage arrays that already exist (for instance the
-JAX package's, as ``np.asarray`` gives them) without rebuilding them.
+JAX package's, as ``np.asarray`` gives them) without rebuilding them:
+dense, BSR, ELL, BitELL and delta relations.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from repro_torch.core import bitmap, grb, ops
 from repro_torch.core.bitadj import BitELL
 from repro_torch.core.bsr import BSR
+from repro_torch.core.delta import DeltaMatrix
 from repro_torch.core.ell import ELL
 
 
@@ -135,6 +137,11 @@ def _dedup(src, dst, w, n):
 
 
 def _make(src, dst, w, n, fmt, block, device):
+    if fmt == "dense":
+        d = torch.zeros((n, n), dtype=torch.float32, device=device)
+        d[torch.from_numpy(src).to(device), torch.from_numpy(dst).to(device)] \
+            = torch.from_numpy(np.asarray(w, np.float32)).to(device)
+        return d
     if fmt == "bsr":
         return BSR.from_coo(src, dst, w, (n, n), block=block, device=device)
     if fmt == "ell":
@@ -160,10 +167,28 @@ _BSR_ARRAYS = ("block_rows", "block_cols", "first", "last", "valid",
                "row_ptr")
 
 
-def _store_from_arrays(arrays: dict, n: int, dev: torch.device):
-    """ELL from ``indices/mask/values``, BitELL from ``tiles/cols`` (uint32
-    or int32 words) or BSR from ``blocks`` and its tile lists, as numpy
-    arrays, for an n x n relation."""
+_DELTA_ARRAYS = ("plus_r", "plus_c", "plus_v", "minus_r", "minus_c")
+
+
+def _store_from_arrays(arrays, shape, dev: torch.device):
+    """Storage of one relation from numpy arrays: a dense (n, m) array, ELL
+    from ``indices/mask/values``, BitELL from ``tiles/cols`` (uint32 or
+    int32 words), BSR from ``blocks`` and its tile lists, or a delta over
+    any of these (the base's arrays, ``dense`` for a dense base, with
+    ``plus_r/plus_c/plus_v/minus_r/minus_c`` and, for a base smaller than
+    the relation, ``base_shape``)."""
+    n, m = shape
+    if not isinstance(arrays, dict):
+        return torch.from_numpy(np.asarray(arrays, np.float32).copy()).to(dev)
+    if "plus_r" in arrays:
+        base = {k: v for k, v in arrays.items()
+                if k not in _DELTA_ARRAYS + ("base_shape",)}
+        base = base.get("dense", base)
+        bshape = tuple(arrays.get("base_shape", shape))
+        dm = DeltaMatrix.wrap(_store_from_arrays(base, bshape, dev), shape)
+        return dm._with(**{k: np.asarray(arrays[k], np.float32
+                                         if k == "plus_v" else np.int64)
+                           for k in _DELTA_ARRAYS})
     if "blocks" in arrays:
         blocks = torch.from_numpy(
             np.asarray(arrays["blocks"], np.float32).copy()).to(dev)
@@ -176,18 +201,18 @@ def _store_from_arrays(arrays: dict, n: int, dev: torch.device):
         nnz = arrays.get("nnz")
         if nnz is None:
             nnz = int((stored & (lists["valid"] != 0)[:, None, None]).sum())
-        return BSR(shape=(n, n), block=int(blocks.shape[1]), blocks=blocks,
+        return BSR(shape=(n, m), block=int(blocks.shape[1]), blocks=blocks,
                    nnz=int(nnz), emask=emask, **lists)
     if "tiles" in arrays:
         tiles = np.ascontiguousarray(arrays["tiles"]).view(np.int32)
         t = torch.from_numpy(tiles.copy()).to(dev)
         nnz = int(bitmap.popcount(t).sum())
-        return BitELL(shape=(n, n), tiles=t,
+        return BitELL(shape=(n, m), tiles=t,
                       cols=torch.from_numpy(
                           np.asarray(arrays["cols"], np.int32).copy()).to(dev),
                       nnz=nnz)
     mask = np.asarray(arrays["mask"], dtype=bool)
-    return ELL(shape=(n, n),
+    return ELL(shape=(n, m),
                indices=torch.from_numpy(
                    np.asarray(arrays["indices"], np.int32).copy()).to(dev),
                mask=torch.from_numpy(mask.copy()).to(dev),
@@ -200,21 +225,26 @@ def from_arrays(n: int, relations: dict, adj=None, labels=None,
                 node_props=None, device="cuda") -> Graph:
     """A Graph over existing storage arrays, rebuilding nothing.
 
-    relations  name -> (forward, transpose), each a dict of numpy arrays:
+    relations  name -> (forward, transpose), each a numpy (n, n) float32
+               array (dense) or a dict of numpy arrays:
                ``indices``/``mask``/``values`` (ELL), ``tiles``/``cols``
-               (BitELL, sentinel column tile C = ceil(n/32)) or
+               (BitELL, sentinel column tile C = ceil(n/32)),
                ``blocks``/``block_rows``/``block_cols``/``first``/``last``/
                ``valid``/``row_ptr`` and optionally ``emask``, ``nnz``
-               (BSR)
+               (BSR), or a delta: one of these bases (a dense base as
+               ``dense``) with ``plus_r``/``plus_c``/``plus_v``/
+               ``minus_r``/``minus_c`` and, for a base smaller than (n, n),
+               ``base_shape``
     adj        (forward, transpose) of the union relation, or None
     labels     label -> bool (n,);  node_props  prop -> float32 (n,)
     """
     dev = _device(device)
 
     def handle(name, pair):
-        A = grb.GBMatrix(_store_from_arrays(pair[0], n, dev), name=name)
-        A.link_transpose(grb.GBMatrix(_store_from_arrays(pair[1], n, dev),
-                                      name=name + "^T"))
+        A = grb.GBMatrix(_store_from_arrays(pair[0], (n, n), dev),
+                         name=name)
+        A.link_transpose(grb.GBMatrix(
+            _store_from_arrays(pair[1], (n, n), dev), name=name + "^T"))
         return Relation(name, A, nnz=A.nvals)
 
     return Graph(

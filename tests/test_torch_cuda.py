@@ -1149,3 +1149,144 @@ def test_call_through_the_server_on_cuda_matches_cpu(fmt):
                                [s for _, s in cpu_rows[-1]], atol=1e-6)
     assert stats[0]["batches"] == stats[1]["batches"] == 1
     assert stats[0]["solo"] == 2
+
+
+# -- the write path: delta handles, Database, MutableGraph on the card --------
+def _delta_pair(fmt, dev, n=300, seed=11):
+    """A delta handle (and its twin) over an R-MAT-like base of ``fmt`` on
+    ``dev`` with 3% of the base deleted and as many pairs added."""
+    from repro_torch.core import grb
+    from repro_torch.core.delta import DeltaMatrix
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, 6 * n)
+    c = (r * 7 + rng.integers(0, 40, 6 * n) ** 2) % n
+    D = np.zeros((n, n), np.float32)
+    D[r, c] = 1.0
+    er, ec = np.nonzero(D)
+    pick = rng.choice(len(er), len(er) // 33, replace=False)
+    ops = [("del", int(er[i]), int(ec[i]), 0.0) for i in pick]
+    ops += [("add", int(a), int(b), 1.0) for a, b in
+            rng.integers(0, n, (len(pick), 2)) if D[a, b] == 0]
+    base = grb.GBMatrix.from_dense(D, fmt=fmt, block=64, device=dev)
+    baseT = grb.GBMatrix.from_dense(D.T.copy(), fmt=fmt, block=64,
+                                    device=dev)
+    h = grb.GBMatrix(DeltaMatrix.wrap(base.store).apply_ops(ops), name="A")
+    h.link_transpose(grb.GBMatrix(DeltaMatrix.wrap(baseT.store).apply_ops(
+        [(k, j, i, w) for k, i, j, w in ops]), name="A^T"))
+    return h
+
+
+@pytest.mark.parametrize("fmt", ["ell", "bsr", "dense"])
+def test_delta_handle_on_cuda_equals_cpu(fmt):
+    from repro_torch.core import grb
+    hc, hh = _delta_pair(fmt, "cuda"), _delta_pair(fmt, "cpu")
+    p, rows = hc.store.patch()
+    assert p.device.type == "cuda" and rows.device.type == "cuda"
+    assert hc.store.materialize().device.type == "cuda"
+    rng = np.random.default_rng(3)
+    B = rng.integers(0, 3, (300, 40)).astype(np.float32)
+    for srname in ("or_and", "min_plus", "plus_pair", "plus_times"):
+        sr = S.get(srname)
+        for d in (grb.NULL, grb.TRANSPOSE_A):
+            got = grb.mxm(hc, torch.from_numpy(B).cuda(), sr, d)
+            want = grb.mxm(hh, torch.from_numpy(B), sr, d)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want), srname
+    for m in (S.PLUS, S.OR, S.MIN):
+        for ax in (None, 0, 1):
+            assert torch.equal(grb.reduce(hc, m, axis=ax).cpu(),
+                               grb.reduce(hh, m, axis=ax)), (m.name, ax)
+
+
+@pytest.mark.parametrize("fmt,kernel", [("ell", bitmap_mxv),
+                                        ("bsr", bsr_mxm)])
+def test_delta_hops_launch_the_base_kernel(fmt, kernel):
+    """A hop on a delta handle launches the base's kernel (and, over an
+    ELL base, the word kernel a second time on the patch)."""
+    from repro_torch.core import grb
+    h = _delta_pair(fmt, "cuda")
+    B = torch.zeros((300, 64), device="cuda")
+    B[torch.arange(64), torch.arange(64)] = 1.0
+    before = kernel.launches
+    grb.mxm(h, B, S.OR_AND, grb.Descriptor(mask=B, complement=True))
+    torch.cuda.synchronize()
+    assert kernel.launches - before == (2 if fmt == "ell" else 1)
+
+
+@pytest.mark.parametrize("fmt", ["ell", "bsr"])
+def test_delta_folds_free_the_card_after_the_call(fmt):
+    """triangle_count, k-truss and the element-wise family fold a delta
+    handle per call: once the result is read, the card's memory is back
+    at its level before the call (no fold stays on the handle)."""
+    from repro_torch import algorithms as algo
+    from repro_torch.core import grb
+    h = _delta_pair(fmt, "cuda")
+    algo.triangle_count(h)                  # the base's forms, built once
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated()
+    tri = int(algo.triangle_count(h))
+    nv = algo.ktruss(h, 3).nvals
+    nv += grb.ewise_add(h, h, S.PLUS).nvals
+    torch.cuda.synchronize()
+    assert tri >= 0 and nv > 0
+    assert torch.cuda.memory_allocated() == level
+
+
+def test_database_read_with_a_kernel_that_cannot_load_raises(monkeypatch):
+    from repro_torch.engine import Database
+    from repro_torch.kernels import KernelError, build
+
+    db = Database(device="cuda")
+    db.query("g", "CREATE (0)-[:R]->(1), (1)-[:R]->(2), (2)-[:R]->(3)")
+    db._graph("g").fmt = "ell"
+    q = "MATCH (a)-[:R*1..2]->(b) WHERE id(a) = 0 RETURN count(DISTINCT b)"
+    assert db.query("g", q).scalar() == 2
+    db.query("g", "CREATE (3)-[:R]->(4)")
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bitmap_mxv, "_bound", None)
+    srv = db.server("g")
+    tmpl = "MATCH (a)-[:R*1..3]->(b) RETURN count(DISTINCT b)"
+    qids = [srv.submit(tmpl, seeds=[s]) for s in range(5)]   # one batch
+    out = srv.flush()
+    assert all("KernelError" in (out[i].error or "") for i in qids)
+
+
+@pytest.mark.parametrize("fmt", ["ell", "bsr"])
+def test_snapshot_isolation_with_device_caches_built(fmt):
+    from repro_torch.engine import Database
+    db = Database(device="cuda")
+    src, dst, n = datagen.rmat_edges(9)
+    for s, d in zip(src.tolist(), dst.tolist()):
+        db._graph("g").create_edge(s, "KNOWS", d)
+    db._graph("g").fmt = fmt
+    tmpl = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
+    reader = db.context("g")
+    assert reader.graph.relations["KNOWS"].A.store.device.type == "cuda"
+    warm = db.server("g")                 # builds the bases' kernel forms
+    for s in range(0, 512, 37):
+        warm.submit(tmpl, seeds=[s])
+    warm.flush()
+    before = [reader.run(tmpl.replace("RETURN", f"WHERE id(a) = {s} RETURN"))
+              .rows for s in range(0, 512, 37)]
+    live = list(db._graph("g").edges)
+    for k, (_, s, d) in enumerate(live[:200]):
+        db.query("g", f"DELETE ({s})-[:KNOWS]->({d})")
+        db.query("g", f"CREATE ({d})-[:KNOWS]->({(s + k) % n})")
+    srv = db.server("g")
+    qids = [srv.submit(tmpl, seeds=[s]) for s in range(0, 512, 37)]
+    srv.flush()
+    after = [reader.run(tmpl.replace("RETURN", f"WHERE id(a) = {s} RETURN"))
+             .rows for s in range(0, 512, 37)]
+    assert after == before and len(qids) == len(before)
+    assert db._graph("g").rebuilds == 1
+    cpu = Database(device="cpu")
+    for (rel, s, d), w in db._graph("g").edges.items():
+        cpu._graph("g").create_edge(s, rel, d, w)
+    cpu._graph("g").fmt = fmt
+    for s in range(0, 512, 37):
+        q = tmpl.replace("RETURN", f"WHERE id(a) = {s} RETURN")
+        assert db.query("g", q).rows == cpu.query("g", q).rows

@@ -415,5 +415,8 @@ def test_mixed_kinds_raise_like_jax():
         tgrb.ewise_mult(tA, tgrb.extract(tA, range(10), None), TS.PLUS)
     with pytest.raises(ValueError, match="duplicate"):
         tgrb.extract(tA, [1, 1], None)
+    # a dense tensor makes a dense handle, as in the JAX package; a kind
+    # the port does not hold still raises
+    assert tgrb.GBMatrix(tD).fmt == jgrb.GBMatrix(jD).fmt == "dense"
     with pytest.raises(NotImplementedError, match="not ported"):
-        tgrb.GBMatrix(tD)
+        tgrb.GBMatrix(tD[0])
