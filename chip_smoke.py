@@ -55,6 +55,18 @@ Phases, each printing one JSON line:
             and support exactly, Jaccard scores within 1e-6 relative)
   library   one PyTorch call computing what a kernel computes, a yardstick
   algo_*    the remaining algorithms and ``CALL algo.*`` (``algorithm_cells``)
+  mesh_*    the mesh (``mesh_cells``): (pod, data, model) meshes of 4 and 8
+            positions on the one card (``distinct_devices`` 1: no figure
+            here is a multi-GPU figure); 1024 k-hop queries through
+            ``QueryServer(mesh=)`` on R-MAT s16 ELL at (1, 4, 1) and
+            (2, 2, 2) and on s18 BitELL at (1, 4, 1), every row equal to
+            the unsharded server's, 32 against the BFS oracle, no host
+            transfer; ``Database.query(mesh=)`` on an s16 graph with
+            pending deltas (frozen as compacted ELL); BFS, k-hop, SSSP,
+            WCC and PageRank on the distributed s16 ELL; the unlinked
+            transposed lowerings against the linked twin at 4 and 16 row
+            shards; each word kernel at one position's local shapes with
+            the gather, kernel and hop times and the all-gather bytes
   write_*   the write path (``write_path_cells``): two ``Database`` graphs
             loaded from R-MAT s16 through ``MutableGraph.create_edge``
             (ELL by ``fmt="auto"``, and BSR with 64-tiles), three rounds
@@ -74,7 +86,9 @@ Phases, each printing one JSON line:
             and replayed from its AOF; and an s12 dense handle against
             its ELL
 
-then the kernels line, the nvidia-smi line, and the result line. Any
+then the kernels line (the word kernels' rows with their launches under
+the mesh, ``mesh_launches``, and their rows at a position's local shapes,
+``mesh_shapes``), the nvidia-smi line, and the result line. Any
 failed check raises and the script exits non-zero without a result line;
 so does a host with no CUDA device. Tolerances: every kernel comparison
 is bit for bit (words, 0/1 indicators, integer walk counts below 2^24,
@@ -143,6 +157,20 @@ READ_COST_PENDING = (0.0, 0.01, 0.02, 0.05, 0.10)
 INTERLEAVE_STEPS = 4
 INTERLEAVE_BULK = 0.03
 SEED = 0                       # --seed: the write streams' draws
+# the mesh: (pod, data, model) meshes whose positions all lie on the one
+# card; the served cells on R-MAT s16 ELL (both meshes) and s18 BitELL, the
+# algorithms on s16, the transposed lowerings at 4 and at 16 row shards
+# (past bitmap.NIBBLE_MAX_SHARDS), the database at s16 with MESH_WRITES
+# pending edge writes
+MESH_SHAPES = ((1, 4, 1), (2, 2, 2))
+MESH_SCALE = 16
+MESH_BITADJ_SCALE = 18
+MESH_BITADJ_SHAPE = (1, 4, 1)
+MESH_ALGO_SOURCES = 64
+MESH_SSSP_SOURCES = 16     # the float min_plus gathers (rows, 6,272, F)
+MESH_WIDE_DATA = 16
+MESH_TRANSPOSED_F = 64
+MESH_WRITES = 1024
 # the fill sweeps: an n x n matrix at each tile side and fill, frontiers
 # of SWEEP_F columns; the planted-partition graph's communities and degrees
 SWEEP_N = 8192
@@ -353,7 +381,7 @@ def main() -> int:
         emit_phase(**row)
         return row
 
-    def bitadj_case(store, w, tag, timed):
+    def bitadj_case(store, w, tag, timed, earlier=True):
         xw = words(store.shape[1], w)
         got = bitadj_mxv.bitadj_mxv_packed(store, xw)
         want = bitadj.mxm_words(store, xw)
@@ -391,8 +419,8 @@ def main() -> int:
                 hub_slots=plan.hub_slots,
                 l2_gather_bytes=store.nnz * w * 4,
                 memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
-                earlier_ms=EARLIER_MS["bitadj_mxv_packed"] if w == 16
-                else None)
+                earlier_ms=EARLIER_MS["bitadj_mxv_packed"]
+                if w == 16 and earlier else None)
         emit_phase(**row)
         return row
 
@@ -1525,6 +1553,12 @@ def main() -> int:
     for k, v in write_words.items():
         kern[k]["launches"] += v
 
+    # -- the mesh: sharded storage, the lowerings, mesh= serving -------------
+    h.bfs_want = bfs_want
+    mesh_words, mesh_shapes = mesh_cells(torch, h)
+    for k, v in mesh_words.items():
+        kern[k]["launches"] += v
+
     # -- the kernels line, the card, the result --------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     rows_by = {
@@ -1600,6 +1634,13 @@ def main() -> int:
             "shape", "W", "equal", "max_abs_err", "kernel_ms", "bound_ms",
             "bound_by", "plain_ms", "library_ms")}
         for name, r_ in write_shapes["ell_mxv_packed"].items()}
+    # the mesh: the word kernels' launches under a mesh and their rows at
+    # one position's local shapes, bit for bit against the plain versions
+    for entry in line[:2]:
+        entry["mesh_launches"] = mesh_words[entry["name"]]
+        entry["mesh_shapes"] = mesh_shapes[entry["name"]]
+        check(entry["mesh_launches"] > 0,
+              f"{entry['name']} never launched under the mesh")
     line[2]["write_shapes"] = {
         name: {k: r_[k] for k in entry_keys + ("masked", "block")}
         for name, r_ in write_shapes["bsr_mxm"].items()}
@@ -2788,6 +2829,335 @@ def write_path_cells(torch, h):
         h.release()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return words, shapes
+
+
+def mesh_cells(torch, h):
+    """The mesh on the card: ``QueryServer(mesh=)``, ``Database.query(mesh=)``,
+    the algorithms and the transposed lowerings on (pod, data, model)
+    meshes whose positions all lie on the one card, each phase driven once
+    with the launch counts at 0 and read just after, and held against the
+    unsharded port (bit for bit; PageRank within L1 1e-5) and, for the
+    served answers, the BFS oracle. Every phase line carries its
+    ``elapsed_s`` and the mesh's ``distinct_devices``. Returns the word
+    kernels' launches under the mesh and their rows at one position's
+    local shapes."""
+    from repro_torch import algorithms as algo
+    from repro_torch.core import bitadj, grb, ops
+    from repro_torch.core import semiring as S
+    from repro_torch.core.bitmap import NIBBLE_MAX_SHARDS
+    from repro_torch.core.delta import DeltaMatrix
+    from repro_torch.core.ell import ELL
+    from repro_torch.core.shard import _pad_words
+    from repro_torch.distr import mesh as M
+    from repro_torch.distr.mesh import Mesh
+    from repro_torch.engine import Database, QueryServer
+    from repro_torch.graph.datagen import rmat_edges, rmat_graph
+    from repro_torch.kernels import bitadj_mxv, bitmap_mxv
+
+    card = h.card
+    tmpl = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
+    words = {"ell_mxv_packed": 0, "bitadj_mxv_packed": 0}
+    shapes = {"ell_mxv_packed": {}, "bitadj_mxv_packed": {}}
+    names = ("pod", "data", "model")
+
+    def card_mesh(shape):
+        return Mesh(np.array([torch.device(DEVICE)] * int(np.prod(shape)),
+                             dtype=object).reshape(shape), names)
+
+    def geometry(mesh):
+        return dict(mesh=dict(mesh.shape), positions=mesh.size,
+                    distinct_devices=mesh.distinct_devices)
+
+    def counted(fn, path=True):
+        """(fn(), seconds, launches) with the counts at 0 just before; on
+        the path, the word launches join the mesh totals."""
+        h.zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = h.launches_now()
+        if path:
+            for k in words:
+                words[k] += got[k]
+        return out, dt, got
+
+    def serve(g, seeds, mesh):
+        """1024 seeded k-hop queries through one server after a warm-up
+        batch (the relation's distribution and its shards' kernel forms):
+        counts, latencies, launches, batches, host transfers, seconds."""
+        srv = QueryServer(g, mesh=mesh)
+        t0 = time.perf_counter()
+        for s in seeds[:CHECKED]:
+            srv.submit(tmpl, seeds=[int(s)])
+        warm = srv.flush()
+        check(all(v.error is None for v in warm.values()),
+              f"mesh warm-up: {[v.error for v in warm.values()][:2]}")
+        setup_s = time.perf_counter() - t0
+        b0, x0 = srv.stats["batches"], grb.host_transfers()
+
+        def run():
+            qids = [srv.submit(tmpl, seeds=[int(s)]) for s in seeds]
+            return srv.flush(), qids
+
+        (out, qids), dt, got = counted(run, path=mesh is not None)
+        errors = [out[q].error for q in qids if out[q].error]
+        check(not errors, f"mesh serve: query errors {errors[:3]}")
+        counts = np.array([out[q].scalar() for q in qids])
+        lat = np.array([m.latency_s for m in srv.log[-len(qids):]]) * 1e3
+        return dict(counts=counts, seconds=dt, qps=len(seeds) / dt,
+                    p50_ms=float(np.percentile(lat, 50)),
+                    p99_ms=float(np.percentile(lat, 99)), launches=got,
+                    batches=srv.stats["batches"] - b0,
+                    host_transfers=grb.host_transfers() - x0,
+                    setup_s=setup_s)
+
+    def serve_cell(g, kernel, mesh_shapes, tag):
+        A = g.relations["KNOWS"].A
+        out_deg = grb.reduce(A, S.PLUS, axis=1).cpu().numpy()
+        seeds = np.random.default_rng(16).choice(
+            np.nonzero(out_deg >= 1)[0], QUERIES, replace=False)
+        base = serve(g, seeds, None)
+        want = h.bfs_want(g)
+        pick = np.random.default_rng(7).choice(QUERIES, CHECKED,
+                                               replace=False)
+        for shape in mesh_shapes:
+            t0 = time.perf_counter()
+            mesh = card_mesh(shape)
+            r = serve(g, seeds, mesh)
+            check(np.array_equal(r["counts"], base["counts"]),
+                  f"mesh_serve_{tag} {shape}: rows differ from unsharded")
+            for i in pick:
+                check(int(r["counts"][i]) == want(tmpl, int(seeds[i])),
+                      f"mesh_serve_{tag} {shape}: query {i} != BFS oracle")
+            need = r["batches"] * 2 * mesh.size      # two hops a batch
+            check(r["launches"][kernel] >= need and need > 0,
+                  f"mesh_serve_{tag} {shape}: {kernel} launched "
+                  f"{r['launches'][kernel]} times, needs {need}")
+            check(r["host_transfers"] == 0,
+                  f"mesh_serve_{tag} {shape}: {r['host_transfers']} host "
+                  f"transfers in the batch")
+            h.emit_phase(phase=f"mesh_serve_{tag}", card=card, **geometry(mesh),
+                         n=g.n, nnz=A.nvals, fmt=A.fmt, queries=QUERIES,
+                         seconds=r["seconds"], qps=r["qps"],
+                         p50_ms=r["p50_ms"], p99_ms=r["p99_ms"],
+                         batches=r["batches"],
+                         launches={kernel: r["launches"][kernel]},
+                         launches_needed=need,
+                         host_transfers=r["host_transfers"],
+                         rows_equal_unsharded=True, checked=CHECKED,
+                         unsharded_qps=base["qps"],
+                         unsharded_p99_ms=base["p99_ms"],
+                         setup_s=r["setup_s"],
+                         elapsed_s=time.perf_counter() - t0)
+        return A
+
+    def local_case(sh, kernel, tag):
+        """The word kernel at position 0's local shapes (the path's
+        handle: the stored transpose the pull hops read) against its
+        plain version, bit for bit, and the hop's times: the word
+        all-gather, the local kernel, the whole hop."""
+        mesh = sh.store.mesh
+        T = sh.T
+        n = sh.shape[0]
+        spec = ("data", None)
+        xw = torch.from_numpy(np.random.default_rng(3).integers(
+            0, 2 ** 32, size=(n, 16), dtype=np.uint64).astype(np.uint32)
+            .view(np.int32)).to(DEVICE)
+        xp = _pad_words(T.store, xw, n)
+        gathered = M.all_gather(mesh, M.shard(mesh, xp, spec), "data")
+        local = T.store.local[0]
+        case = h.ell_case if kernel == "ell_mxv_packed" else h.bitadj_case
+        row = case(local, 16, f"mesh {tuple(mesh.shape.values())} position "
+                   f"0 local {tag}", timed=True, earlier=False)
+        x0 = gathered[0].contiguous()
+        if kernel == "ell_mxv_packed":
+            got = bitmap_mxv.ell_mxv_packed(local, x0)
+            want = ops.ell_mxm_packed(local, x0)
+        else:
+            got = bitadj_mxv.bitadj_mxv_packed(local, x0)
+            want = bitadj.mxm_words(local, x0)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{kernel} == plain on the gathered "
+              f"frontier of position 0 ({tag})")
+        gather_ms = time_ms(torch, lambda: M.all_gather(
+            mesh, M.shard(mesh, xp, spec), "data"))
+        kernel_ms = row["kernel_ms"]
+        hop_ms = time_ms(torch, lambda: grb.mxm_words(sh, xw,
+                                                      transpose_a=True))
+        dsz = mesh.shape["data"]
+        k_pad = xp.shape[0]
+        # what the all-gather moves into each position: the other row
+        # shards' blocks, as words and as float32 indicators
+        packed = (dsz - 1) * (k_pad // dsz) * xw.shape[1] * 4
+        floats = packed * 32
+        rec = dict(shape=list(local.shape), W=16, equal=True,
+                   max_abs_err=row["max_abs_err"], kernel_ms=kernel_ms,
+                   bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                   plain_ms=row["plain_ms"], library_ms=None,
+                   gather_ms=gather_ms, hop_ms=hop_ms,
+                   allgather_bytes_per_position=packed,
+                   allgather_float_bytes_per_position=floats)
+        shapes[kernel][tag] = rec
+        h.emit_phase(phase="mesh_kernels", card=card, kernel=kernel, tag=tag,
+                     **geometry(mesh), **rec)
+
+    t_all = time.perf_counter()
+    # -- mesh_serve_ell: R-MAT s16, fmt="auto" (ELL) ---------------------------
+    g = rmat_graph(MESH_SCALE, fmt="auto", device=DEVICE)
+    check(g.relations["KNOWS"].A.fmt == "ell", "mesh s16 fmt='auto' not ell")
+    A = serve_cell(g, "ell_mxv_packed", MESH_SHAPES, "ell")
+
+    # -- mesh_algo: BFS, k-hop, WCC, PageRank, SSSP on s16 ELL at (1, 4, 1) --
+    t0 = time.perf_counter()
+    mesh = card_mesh(MESH_SHAPES[0])
+    sh = grb.distribute(A, mesh)
+    seeds = np.random.default_rng(17).choice(g.n, MESH_ALGO_SOURCES,
+                                             replace=False)
+    res, algo_launches = {}, 0
+    for name, fn in (
+            ("bfs_levels", lambda X: algo.bfs_levels(X, seeds)),
+            ("khop_counts", lambda X: algo.khop_counts(X, seeds, k=2)),
+            ("wcc", lambda X: algo.wcc(X))):
+        got, dt, launched = counted(lambda: fn(sh))
+        algo_launches += launched["ell_mxv_packed"]
+        check(torch.equal(got, fn(A)), f"mesh_algo {name} != unsharded")
+        res[name] = dt
+    check(algo_launches > 0, "mesh_algo: ell_mxv_packed never launched")
+    pr, dt, _ = counted(lambda: algo.pagerank(sh))
+    l1 = float((pr - algo.pagerank(A)).abs().sum())
+    check(l1 <= 1e-5, f"mesh_algo pagerank L1 {l1} > 1e-5")
+    res["pagerank"] = dt
+    def weighted(e, forward):
+        """The relation's ELL with weights 1-3 from its edge (src, dst),
+        sharing the structure: the stored transpose reads its edges
+        swapped, so the twin carries the same weights."""
+        rows = torch.arange(e.shape[0], device=e.device)[:, None]
+        src_, dst_ = (rows, e.indices) if forward else (e.indices, rows)
+        w = (1 + (src_ * 7 + dst_ * 3) % 3).to(torch.float32)
+        return ELL(shape=e.shape, indices=e.indices, mask=e.mask,
+                   values=torch.where(e.mask, w, 0.0), nnz=e.nnz)
+
+    Aw = grb.GBMatrix(weighted(A.store, True), name="ROAD")
+    Aw.link_transpose(grb.GBMatrix(weighted(A.T.store, False),
+                                   name="ROAD^T"))
+    shw = grb.distribute(Aw, mesh)
+    sssp_seeds = seeds[:MESH_SSSP_SOURCES]
+    dist, dt, _ = counted(lambda: algo.sssp(shw, sssp_seeds))
+    check(torch.equal(dist, algo.sssp(Aw, sssp_seeds)),
+          "mesh_algo sssp differs")
+    res["sssp"] = dt
+    h.emit_phase(phase="mesh_algo", card=card, **geometry(mesh), n=g.n,
+                 nnz=A.nvals, sources=MESH_ALGO_SOURCES,
+                 sssp_sources=MESH_SSSP_SOURCES, seconds=res,
+                 pagerank_l1=l1, exact=True,
+                 launches={"ell_mxv_packed": algo_launches},
+                 elapsed_s=time.perf_counter() - t0)
+    del Aw, shw, dist, pr
+
+    # -- mesh_transposed: unlinked TRANSPOSE_A against the linked twin --------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    Xv = torch.from_numpy(np.where(rng.random((g.n, MESH_TRANSPOSED_F))
+                                   < 1e-3, rng.integers(1, 3, (
+                                       g.n, MESH_TRANSPOSED_F)), 0)
+                          .astype(np.float32)).to(DEVICE)
+    cases = {}
+    for data, srs in ((MESH_SHAPES[0][1], (S.OR_AND, S.PLUS_TIMES,
+                                           S.MIN_PLUS)),
+                      (MESH_WIDE_DATA, (S.OR_AND,))):
+        m_ = card_mesh((1, data, 1))
+        linked = grb.distribute(A, m_)
+        un = grb.distribute(grb.GBMatrix(A.store), m_)
+        check(un._T is None, "mesh_transposed: the handle has a twin")
+        for sr in srs:
+            x = (Xv > 0).float() if sr is S.OR_AND else Xv[:, :8]
+            (got, dt, _) = counted(lambda: grb.mxm(un, x, sr,
+                                                    grb.TRANSPOSE_A),
+                                   path=False)
+            want = grb.mxm(linked, x, sr, grb.TRANSPOSE_A)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"mesh_transposed {sr.name} data={data} != linked twin")
+            body = ("nibble words" if sr is S.OR_AND
+                    and data <= NIBBLE_MAX_SHARDS else
+                    "float partials" if sr is S.OR_AND else
+                    "pmin" if sr is S.MIN_PLUS else "psum_scatter")
+            cases[f"{sr.name} data={data}"] = dict(F=x.shape[1], body=body,
+                                                   seconds=dt, equal=True)
+        del linked, un
+    h.emit_phase(phase="mesh_transposed", card=card, n=g.n, cases=cases,
+                 distinct_devices=1, elapsed_s=time.perf_counter() - t0)
+
+    # -- mesh_kernels: kernel 1 at a position's local shapes -----------------
+    local_case(sh, "ell_mxv_packed", "s16 ELL")
+    del sh, g, A
+    h.release()
+
+    # -- mesh_database: Database.query(mesh=) on s16 with pending deltas -----
+    t0 = time.perf_counter()
+    src, dst, n = rmat_edges(MESH_SCALE)
+    key = np.unique(src * n + dst)
+    db = Database(device=DEVICE)
+    mg = db._graph("g")
+    mg.fmt = "ell"              # the mesh's format: its deltas are pending
+    for s, d in zip(src.tolist(), dst.tolist()):
+        mg.create_edge(s, "KNOWS", d)
+    mg.freeze()                                   # the base, built once
+    wr = np.random.default_rng(SEED + 9)
+    live = key[wr.choice(len(key), MESH_WRITES // 2, replace=False)]
+    dels = [(int(k // n), int(k % n)) for k in live]
+    adds = []
+    keyset = set(key.tolist())
+    while len(adds) < MESH_WRITES // 2:
+        a, b = (int(x) for x in wr.integers(0, n, 2))
+        if a * n + b not in keyset and (a, b) not in adds:
+            adds.append((a, b))
+    for kind, pairs in (("DELETE", dels), ("CREATE", adds)):
+        for i in range(0, len(pairs), WRITE_COMMAND):
+            db.query("g", f"{kind} " + ", ".join(
+                f"({s})-[:KNOWS]->({d})"
+                for s, d in pairs[i:i + WRITE_COMMAND]))
+    view = mg.freeze()
+    Ad = view.relations["KNOWS"].A
+    check(isinstance(Ad.store, DeltaMatrix) and Ad.store.pending > 0,
+          "mesh_database: no pending deltas before the mesh read")
+    mesh = card_mesh(MESH_SHAPES[0])
+    qs = [tmpl.replace("RETURN", f"WHERE id(a) = {s} RETURN")
+          for s, _ in dels[:8]] + [
+        "MATCH (a)-[:KNOWS*1..2]->(b) WHERE id(a) IN "
+        f"[{', '.join(str(s) for s, _ in adds[:16])}] "
+        "RETURN a, count(DISTINCT b)"]
+    want = [db.query("g", q).rows for q in qs]
+    got, dt, launched = counted(lambda: [db.query("g", q, mesh=mesh).rows
+                                         for q in qs])
+    check(got == want, "mesh_database: rows differ from the unsharded "
+          "delta-served query")
+    ctx = db.context("g", mesh=mesh)
+    M_ = ctx.matrix("KNOWS")
+    check(M_.fmt == "sharded" and isinstance(
+        ctx.graph.relations["KNOWS"].A.store, ELL),
+        "mesh_database: the mesh view is not compacted ELL")
+    h.emit_phase(phase="mesh_database", card=card, **geometry(mesh), n=n,
+                 writes=MESH_WRITES, pending=Ad.store.pending,
+                 queries=len(qs), seconds=dt, rows_equal=True,
+                 launches=launched["ell_mxv_packed"],
+                 elapsed_s=time.perf_counter() - t0)
+    del db, mg, view, Ad, ctx, M_
+    h.release()
+
+    # -- mesh_serve_bitadj: R-MAT s18 BitELL at (1, 4, 1) ---------------------
+    g = rmat_graph(MESH_BITADJ_SCALE, fmt="bitadj", device=DEVICE)
+    A = serve_cell(g, "bitadj_mxv_packed", (MESH_BITADJ_SHAPE,), "bitadj")
+    local_case(grb.distribute(A, card_mesh(MESH_BITADJ_SHAPE)),
+               "bitadj_mxv_packed", "s18 BitELL")
+    del g, A
+    h.release()
+    h.emit_phase(phase="mesh_total", card=card, distinct_devices=1,
+                 launches=dict(words),
+                 elapsed_s=time.perf_counter() - t_all)
     return words, shapes
 
 

@@ -88,7 +88,8 @@ def similarity_matrix(A, kind: str = "jaccard", rel=None,
     own edges): C<mask> = A (x)_plus_pair A, then a sparse ``ewise_mult``
     with the reciprocal denominators, assembled once on C's stored pattern
     from its host entry list. ELL and BitELL handles are reblocked to BSR
-    through their entry lists, a delta handle takes its materialization;
+    through their entry lists (a ShardedBitELL gathered first, counted),
+    a delta handle takes its materialization;
     a dense handle runs the dense pipeline and returns a dense handle."""
     _check_kind(kind)
     A = grb.matrix(A, rel)
@@ -98,7 +99,7 @@ def similarity_matrix(A, kind: str = "jaccard", rel=None,
                          f"got {A.shape}")
     if A.fmt == "delta":
         A = GBMatrix(A.store.materialize())
-    if A.fmt == "bitadj":
+    if A.fmt in ("bitadj", "bitshard"):
         A = GBMatrix(A.store.to_ell())
     if A.fmt == "ell":
         A = GBMatrix(as_bsr(A.store, 128))

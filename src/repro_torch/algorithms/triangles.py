@@ -7,9 +7,10 @@ with the structural mask <A> pruning output tiles, then ``grb.reduce``
 sums the stored counts. ELL handles reblock to BSR through their entry
 list first (the JAX package multiplies them densely; the count is the
 same), a delta handle takes its materialization, and a dense handle runs
-the dense product. BitELL handles skip the semiring: the masked plus_pair product is a
-neighbourhood intersection, word-AND + SWAR popcount over tile pairs
-(``core.bitadj.triangle_count``).
+the dense product. BitELL and ShardedBitELL handles skip the semiring:
+the masked plus_pair product is a neighbourhood intersection, word-AND +
+SWAR popcount over tile pairs (``core.bitadj.triangle_count``, on the
+sharded panels assembled on the mesh's first device).
 
 The sum passes 2^24 on Graph500 R-MAT from scale 14, where a float32
 accumulation is not exact; both routes count exactly (float64 / int64).
@@ -30,7 +31,7 @@ def triangle_count(A, rel=None) -> torch.Tensor:
     A = grb.matrix(A, rel)
     if A.fmt == "delta":
         A = GBMatrix(A.store.materialize())
-    if A.fmt == "bitadj":
+    if A.fmt in ("bitadj", "bitshard"):
         total = _bitadj.triangle_count(A.store)
     else:
         if A.fmt == "ell":

@@ -1,7 +1,7 @@
 """BitELL: bit-packed structural adjacency.
 
-Port of ``repro.core.bitadj`` (single-device BitELL; ``ShardedBitELL``
-waits for the mesh slice). Rows are grouped into 32-row panels; each panel
+Port of ``repro.core.bitadj``: BitELL and its mesh twin
+``ShardedBitELL``. Rows are grouped into 32-row panels; each panel
 keeps an ELL-style list of occupied 32-column tile slots, and one 32x32
 tile of edges lives in 32 words:
 
@@ -18,6 +18,12 @@ plain version of the hand-written CUDA kernel ``kernels.bitadj_mxv``, which
 reads the occupied slots through a ``SlotPlan`` (``BitELL.slot_plan``).
 Weighted semirings take the cached materialize-to-ELL fallback
 (``to_ell``), as in the JAX package.
+
+``ShardedBitELL`` lays the panels over a ``distr.mesh.Mesh``'s "data"
+axis, padded with all-sentinel panels; each position holds a shard-local
+BitELL whose kernel forms (``occupied_first``, ``slot_plan``) are built
+once, when it is distributed. ``sharded_mxm_words`` is its or_and product:
+one word all-gather, then the word kernel on every shard.
 """
 from __future__ import annotations
 
@@ -370,3 +376,166 @@ def triangle_count(s: BitELL, slot_chunk: int = 4) -> torch.Tensor:
             bits = (tc[:, :, :, None] >> shifts) & 1      # (p, sc, 32r, 32b)
             acc += (inter.long() * bits).sum()
     return acc.to(torch.float64) / 6.0
+
+
+# ---------------------------------------------------------------------------
+# ShardedBitELL — the mesh twin behind grb.distribute
+# ---------------------------------------------------------------------------
+class ShardedBitELL:
+    """BitELL panels sharded over the mesh's "data" axis (see module doc).
+
+    ``local`` holds one shard-local BitELL per position (``p_pad / data``
+    panels, shape (panels * 32, k)); p_pad rounds the panel count up to a
+    multiple of the "data" axis, the extra panels all-sentinel. Built by
+    :meth:`from_bitell` (grb.distribute); transpose_a is always served from
+    the linked twin grb.distribute builds: there is no transposed
+    bit-scatter lowering. ``tiles`` / ``cols`` assemble the padded arrays
+    on the mesh's first device."""
+    __slots__ = ("shape", "mesh", "local", "nnz", "p_pad", "_ell2d")
+
+    def __init__(self, shape, mesh, local, nnz):
+        from repro_torch.core import shard as _shard
+        self.shape = tuple(shape)
+        self.mesh = _shard._check_mesh(mesh)
+        self.local = local
+        self.nnz = int(nnz)
+        self.p_pad = int(local[0].n_panels) * mesh.shape[_shard.ROW_AXIS]
+        self._ell2d = None          # cached ShardedELL materialization
+
+    @classmethod
+    def from_bitell(cls, b: BitELL, mesh) -> "ShardedBitELL":
+        """Pad the panels to the "data" axis (padding panels all-sentinel,
+        cols = n_ctiles) and place them on the mesh; each shard's kernel
+        forms are built here, once. Blocks on the BitELL's own device are
+        views of it when no padding is needed."""
+        from repro_torch.core import semiring as S
+        from repro_torch.core import shard as _shard
+        _shard._check_mesh(mesh)
+        dsz = mesh.shape[_shard.ROW_AXIS]
+        Pn = b.tiles.shape[0]
+        p_pad = Pn + (-Pn) % dsz
+        t = _shard._pad_rows(b.tiles, p_pad)
+        c = _shard._pad_rows(b.cols, p_pad, fill=b.n_ctiles)
+        k = b.shape[1]
+
+        def shard_of(tl, cl):
+            sh = BitELL(shape=(tl.shape[0] * TILE, k), tiles=tl, cols=cl,
+                        nnz=0)
+            sh.nnz = int(reduce_stored(sh, S.PLUS, None, torch.float64))
+            return sh
+
+        local = _shard.local_map(shard_of, _shard.row_blocks(mesh, t),
+                                 _shard.row_blocks(mesh, c))
+        for sh in {id(x): x for x in local}.values():
+            sh.slot_plan()                  # with occupied_first, cached
+        return cls(b.shape, mesh, local, nnz=b.nnz)
+
+    # -- mesh geometry -------------------------------------------------------
+    @property
+    def data_size(self) -> int:
+        from repro_torch.core import shard as _shard
+        return self.mesh.shape[_shard.ROW_AXIS]
+
+    @property
+    def frontier_size(self) -> int:
+        from repro_torch.core import shard as _shard
+        return int(np.prod([self.mesh.shape[a]
+                            for a in _shard.frontier_axes(self.mesh)] or [1]))
+
+    @property
+    def n_ctiles(self) -> int:
+        return -(-self.shape[1] // TILE)
+
+    @property
+    def n_slots(self) -> int:
+        return self.local[0].n_slots
+
+    @property
+    def payload_bytes(self) -> int:
+        return self.p_pad * self.n_slots * (TILE + 1) * 4
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.home
+
+    def _global(self, attr: str) -> torch.Tensor:
+        from repro_torch.distr import mesh as M
+        return M.unshard(self.mesh, [getattr(s, attr) for s in self.local],
+                         ("data",))
+
+    @property
+    def tiles(self) -> torch.Tensor:
+        return self._global("tiles")
+
+    @property
+    def cols(self) -> torch.Tensor:
+        return self._global("cols")
+
+    # -- gathering conversions (counted) -------------------------------------
+    def to_bitell(self) -> BitELL:
+        """Gather the panel shards back to one BitELL on the mesh's first
+        device (drops padding panels). Counted like ShardedELL.to_ell."""
+        xfer.record("bitadj_gather")
+        Pn = max(-(-self.shape[0] // TILE), 1)
+        return BitELL(shape=self.shape, tiles=self.tiles[:Pn].contiguous(),
+                      cols=self.cols[:Pn].contiguous(), nnz=self.nnz)
+
+    def to_ell(self) -> ELL:
+        return self.to_bitell().to_ell()
+
+    def to_dense(self) -> torch.Tensor:
+        return self.to_ell().to_dense()
+
+    def to_coo(self):
+        return self.to_bitell().to_coo()
+
+    def transpose(self) -> "ShardedBitELL":
+        return ShardedBitELL.from_bitell(self.to_bitell().transpose(),
+                                         self.mesh)
+
+    def materialize_sharded(self):
+        """Cached ShardedELL on the same mesh: the sharded fallback target
+        for weighted semirings, ewise and assign / extract (one counted
+        gather to rebuild neighbour lists, then on the mesh again)."""
+        from repro_torch.core.shard import ShardedELL
+        if self._ell2d is None:
+            self._ell2d = ShardedELL.from_ell(self.to_ell(), self.mesh)
+        return self._ell2d
+
+    def __repr__(self) -> str:
+        n, k = self.shape
+        axes = "x".join(f"{a}:{self.mesh.shape[a]}"
+                        for a in self.mesh.axis_names)
+        return (f"ShardedBitELL {n}x{k} mesh=({axes}) nnz={self.nnz} "
+                f"slots={self.n_slots}")
+
+
+def sharded_mxm_words(s: ShardedBitELL, Xw: torch.Tensor) -> torch.Tensor:
+    """Row-form or_and mxm on the mesh with a packed frontier: one word
+    all-gather of Xw over "data" per call, then the word product on each
+    panel block (the ``bitadj_mxv_packed`` kernel on a CUDA shard). Words
+    in, words out: what grb.mxm_words dispatches to."""
+    from repro_torch.core.shard import _pad_words
+    from repro_torch.distr import graph2d
+    n, k = s.shape
+    Xp = _pad_words(s, Xw, k)
+    fn = graph2d.bit_mxm_2d(s.mesh, s.n_slots, k)
+    Y = fn(s.local, Xp)
+    return Y[:n, :Xw.shape[1]]
+
+
+def sharded_reduce_stored(s: ShardedBitELL, monoid, axis,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """plus / or reduction over the sharded bit-tiles: each shard counts
+    its panels (``reduce_stored``, float64), per-row counts are
+    concatenated, full and per-column counts psum over "data"."""
+    from repro_torch.core import semiring as S
+    from repro_torch.core.shard import local_map
+    from repro_torch.distr import mesh as M
+    parts = local_map(lambda b: reduce_stored(b, S.PLUS, axis,
+                                              torch.float64), s.local)
+    if axis == 1:
+        out = M.unshard(s.mesh, parts, ("data",))[:s.shape[0]]
+    else:
+        out = M.unshard(s.mesh, M.psum(s.mesh, parts, "data"), ())
+    return (out > 0).to(dtype) if monoid.name == "or" else out.to(dtype)

@@ -1,7 +1,8 @@
 """Bitmap-packed boolean frontiers: 32 queries per 32-bit word.
 
-Port of ``repro.core.bitmap`` (the bit lanes; the nibble lanes serve only
-the mesh and wait for the mesh slice). An (n, F) boolean frontier becomes
+Port of ``repro.core.bitmap``: the bit lanes, and the nibble lanes the
+mesh's transposed product sums across row shards. An (n, F) boolean
+frontier becomes
 an (n, ceil(F/32)) word array; bit b of word w of row i is
 ``x[i, 32*w + b] != 0``, the reference's layout bit for bit.
 
@@ -16,6 +17,10 @@ from __future__ import annotations
 import torch
 
 WORD_BITS = 32          # bit lanes per word (the frontier form)
+NIBBLE_LANES = 8        # 4-bit lanes per word (the summable form)
+# 4-bit lanes hold sums up to 15: a psum of at most this many 0/1 nibble
+# words never carries into the next lane
+NIBBLE_MAX_SHARDS = 15
 
 # -- observability: how many times a frontier was packed ----------------------
 _pack_calls = [0]
@@ -114,3 +119,33 @@ def reduce_or_columns(xw: torch.Tensor, f: int) -> torch.Tensor:
     bits = (xw[:, :, None] >> shifts) & 1                   # (n, W, 32)
     per = bits.sum(dim=0, dtype=torch.int64).reshape(w * WORD_BITS)
     return per[:f].to(torch.float32)
+
+
+# -- nibble lanes: the summable packing for add-only collectives --------------
+def pack_nibbles(bits: torch.Tensor) -> torch.Tensor:
+    """(n, F) 0/1 partials -> (n, ceil(F/8)) int32 words (uint32 bit
+    pattern), 4 bits a lane: lane l of word w is ``bits[:, 8*w + l] !=
+    0`` at bit 4*l. Sums of at most NIBBLE_MAX_SHARDS such words never
+    carry across lanes: the psum_scatter payload of the transposed packed
+    mxm."""
+    n, f = bits.shape
+    w = max(-(-f // NIBBLE_LANES), 1)
+    b = torch.zeros((n, w * NIBBLE_LANES), dtype=torch.int64,
+                    device=bits.device)
+    b[:, :f] = (bits != 0).to(torch.int64)
+    weights = torch.ones(NIBBLE_LANES, dtype=torch.int64,
+                         device=bits.device) << (4 * torch.arange(
+                             NIBBLE_LANES, dtype=torch.int64,
+                             device=bits.device))
+    return _to_int32_words((b.reshape(n, w, NIBBLE_LANES) * weights)
+                           .sum(dim=2))
+
+
+def unpack_nibbles(xw: torch.Tensor, f: int) -> torch.Tensor:
+    """(n, Wn) summed nibble words (int32 or int64) -> (n, f) bool "any
+    shard contributed": each lane saturates with > 0, restoring the OR the
+    sum stood in for."""
+    n, w = xw.shape
+    shifts = 4 * torch.arange(NIBBLE_LANES, dtype=xw.dtype, device=xw.device)
+    lanes = (xw[:, :, None] >> shifts) & 0xF
+    return lanes.reshape(n, w * NIBBLE_LANES)[:, :f] > 0

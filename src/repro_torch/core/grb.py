@@ -1,12 +1,15 @@
 """The GraphBLAS operation surface ``C<M> accum= op(A, B, desc)``, over torch.
 
-Port of ``repro.core.grb`` (all but the sharded kinds):
+Port of ``repro.core.grb``:
 
   Descriptor / finalize   the write blend (mask, complement, accum,
                           replace, transpose_a);
-  GBMatrix                one handle over dense, BSR, ELL, BitELL or delta
-                          storage, with a linked stored transpose (``.T``);
-                          ``with_impl`` is a no-op kept for parity;
+  GBMatrix                one handle over dense, BSR, ELL, BitELL, delta,
+                          sharded ELL or sharded BitELL storage, with a
+                          linked stored transpose (``.T``); ``with_impl``
+                          is a no-op kept for parity;
+  distribute              an ELL or BitELL handle re-homed onto a mesh
+                          (``distr.mesh.Mesh``), cached per mesh;
   mxm                     the semiring matmul on a dense (k, F) frontier:
                           BSR through ``kernels.bsr_mxm`` with a pure
                           masked write fused into its epilogue, ELL float
@@ -20,6 +23,8 @@ Port of ``repro.core.grb`` (all but the sharded kinds):
   mxm_words               packed words in, packed words out — the per-hop
                           call of word-resident hop loops (BSR and delta
                           detour through the float mxm on the device);
+                          sharded handles lower to ``distr.graph2d``, the
+                          word kernels running once per mesh position;
   words_route_ok          the gate for those loops;
   mxv / vxm               width-1 products through ``mxm``;
   ewise_add / ewise_mult  the element-wise family over stored entries
@@ -41,7 +46,12 @@ compute in plain torch (the JAX package runs them through XLA, outside
 any Pallas kernel); the element-wise family returns raw tensors for dense
 operands. Delta handles (``core.delta``) compose the matmul family and
 the plus / or reductions from their base and a row patch, and take a
-materialization, folded per call, elsewhere. Sharded storage is not ported.
+materialization, folded per call, elsewhere. Sharded handles
+(``core.shard.ShardedELL``, ``core.bitadj.ShardedBitELL``) stay on their
+mesh through mxm, the element-wise family, column extract / assign and
+reduce; only cross-shard requests gather, and each gather is counted
+(``host_transfers``). A sharded operand pairs only with sharded operands
+on the same mesh (TypeError otherwise), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -57,13 +67,17 @@ from repro_torch.core import bsr as _bsr
 from repro_torch.core import coo as _coo
 from repro_torch.core import ops as _ops
 from repro_torch.core import semiring as S
+from repro_torch.core import shard as _shard
 from repro_torch.core import xfer as _xfer
-from repro_torch.core.bitadj import BitELL
+from repro_torch.core.bitadj import BitELL, ShardedBitELL
 from repro_torch.core.bsr import BSR, SPGEMM_MODES as _SPGEMM_MODES
 from repro_torch.core.delta import DeltaMatrix
 from repro_torch.core.ell import ELL
+from repro_torch.core.shard import ShardedELL
 
-Storage = Union[BSR, ELL, BitELL, DeltaMatrix, torch.Tensor]
+Storage = Union[BSR, ELL, BitELL, DeltaMatrix, ShardedELL, ShardedBitELL,
+                torch.Tensor]
+_SHARDED = (ShardedELL, ShardedBitELL)
 
 
 # ---------------------------------------------------------------------------
@@ -133,14 +147,18 @@ def _fmt_of(store) -> str:
         return "ell"
     if isinstance(store, BitELL):
         return "bitadj"
+    if isinstance(store, ShardedELL):
+        return "sharded"
     if isinstance(store, DeltaMatrix):
         return "delta"
+    if isinstance(store, ShardedBitELL):
+        return "bitshard"
     if isinstance(store, torch.Tensor) and store.dim() == 2:
         return "dense"
     raise NotImplementedError(
-        f"storage {type(store).__name__} is not ported yet: the port holds "
-        f"dense (a 2-D torch tensor), BSR, ELL, BitELL and delta handles; "
-        f"sharded storage waits for the mesh (ROADMAP item 10)")
+        f"storage {type(store).__name__} is not ported: the port holds "
+        f"dense (a 2-D torch tensor), BSR, ELL, BitELL, delta, ShardedELL "
+        f"and ShardedBitELL handles")
 
 
 # -- the card's crossovers between the entry and tile kernels of bsr_mxm
@@ -184,11 +202,13 @@ def _pack_wanted(f: int) -> bool:
 
 
 class GBMatrix:
-    """One matrix handle over dense / BSR / ELL / BitELL / delta storage,
-    with a lazily built or explicitly linked stored transpose (``A.T``).
-    The route is chosen by where the storage lies (CUDA kernel or plain
-    version), so the handle carries no execution policy."""
-    __slots__ = ("store", "fmt", "name", "_T")
+    """One matrix handle over dense / BSR / ELL / BitELL / delta / sharded
+    storage, with a lazily built or explicitly linked stored transpose
+    (``A.T``) and its distributed twins, cached per mesh
+    (:func:`distribute`). The route is chosen by where the storage lies
+    (CUDA kernel or plain version), so the handle carries no execution
+    policy."""
+    __slots__ = ("store", "fmt", "name", "_T", "_sharded")
 
     def __init__(self, store: Storage, name: str = ""):
         if isinstance(store, GBMatrix):
@@ -197,6 +217,10 @@ class GBMatrix:
         self.fmt = _fmt_of(store)
         self.name = name
         self._T: Optional["GBMatrix"] = None
+        # mesh -> distributed twin, filled by distribute (like the _T
+        # cache: serving contexts re-resolve per query and must not re-pad
+        # and re-place the whole graph each time)
+        self._sharded: Optional[dict] = None
 
     @classmethod
     def wrap(cls, A) -> "GBMatrix":
@@ -313,6 +337,82 @@ def matrix(obj, rel: Optional[str] = None) -> GBMatrix:
     return GBMatrix.wrap(obj)
 
 
+def distribute(obj, mesh, rel: Optional[str] = None) -> GBMatrix:
+    """Re-home an ELL or BitELL handle onto a mesh: the sharded-storage
+    constructor.
+
+    Takes anything :func:`matrix` takes. Returns a GBMatrix over a
+    row-sharded ``core.shard.ShardedELL`` (or ``core.bitadj.ShardedBitELL``
+    for bit-packed structural adjacency, whose transpose twin is built and
+    linked here, since the bit route has no transposed scatter lowering);
+    a linked transpose is sharded and linked too, so ``A.T`` and
+    ``transpose_a`` keep resolving to stored transposes on the mesh. Every
+    later ``grb`` call on the handle lowers to the mesh collectives.
+
+    A sharded handle on another mesh is gathered and re-homed; a delta
+    handle is compacted first (the mesh layout has no delta lowering).
+    Other storage raises TypeError. Distributed twins are cached on the
+    source handle per mesh, with each shard's kernel forms, so per-query
+    contexts re-resolving a relation never re-pad or re-place the graph.
+    """
+    h = matrix(obj, rel)
+    if h.fmt == "sharded":
+        if h.store.mesh == mesh:
+            return h
+        hh = GBMatrix(h.store.to_ell(), name=h.name)  # re-home across meshes
+        if h._T is not None and h._T.fmt == "sharded":
+            hh.link_transpose(GBMatrix(h._T.store.to_ell(), name=h._T.name))
+        h = hh
+    if h.fmt == "bitshard":
+        if h.store.mesh == mesh:
+            return h
+        hh = GBMatrix(h.store.to_bitell(), name=h.name)
+        if h._T is not None and h._T.fmt == "bitshard":
+            hh.link_transpose(GBMatrix(h._T.store.to_bitell(),
+                                       name=h._T.name))
+        h = hh
+    if h.fmt == "delta":
+        # compact into the base format first (engine.Database freezes
+        # mesh-served graphs with compact=True so serving never pays this)
+        hh = GBMatrix(h.store.materialize(), name=h.name)
+        if h._T is not None and h._T.fmt == "delta":
+            hh.link_transpose(GBMatrix(h._T.store.materialize(),
+                                       name=h._T.name))
+        h = hh
+    if h.fmt == "bitadj":
+        # transpose_a on the mesh is always served from a stored twin:
+        # build and link it here, once
+        cache = h._sharded if h._sharded is not None else {}
+        m = cache.get(mesh)
+        if m is None:
+            hT = h.T
+            m = GBMatrix(ShardedBitELL.from_bitell(h.store, mesh),
+                         name=h.name)
+            m.link_transpose(
+                GBMatrix(ShardedBitELL.from_bitell(hT.store, mesh),
+                         name=hT.name))
+            cache[mesh] = m
+            h._sharded = cache
+        return m
+    if h.fmt != "ell":
+        raise TypeError(
+            f"grb.distribute: sharded dispatch needs ELL or BitELL row "
+            f"storage, got {h.fmt!r} — rebuild with fmt='ell' "
+            f"(GBMatrix.from_dense(x, fmt='ell') / "
+            f"GraphBuilder.build(fmt='ell')) before distributing onto a "
+            f"mesh")
+    cache = h._sharded if h._sharded is not None else {}
+    m = cache.get(mesh)
+    if m is None:
+        m = GBMatrix(ShardedELL.from_ell(h.store, mesh), name=h.name)
+        if h._T is not None and h._T.fmt == "ell":
+            m.link_transpose(GBMatrix(ShardedELL.from_ell(h._T.store, mesh),
+                                      name=h._T.name))
+        cache[mesh] = m
+        h._sharded = cache
+    return m
+
+
 # ---------------------------------------------------------------------------
 # GrB_mxm
 # ---------------------------------------------------------------------------
@@ -343,13 +443,14 @@ def _mxm_packed(A: GBMatrix, B: torch.Tensor, sr: S.Semiring, d: Descriptor,
 
 
 def _storage(x):
-    """A handle's store, BitELL as its cached ELL and delta storage as its
-    materialization (folded per call); other operands as they are."""
+    """A handle's store, BitELL as its cached ELL, delta storage as its
+    materialization (folded per call) and sharded storage gathered
+    (counted); other operands as they are."""
     if isinstance(x, GBMatrix):
         x = x.store
     if isinstance(x, DeltaMatrix):
         x = x.materialize()
-    return x.to_ell() if isinstance(x, BitELL) else x
+    return x.to_ell() if isinstance(x, (BitELL,) + _SHARDED) else x
 
 
 def _mask_as_bsr(mask, block: int) -> Optional[BSR]:
@@ -415,15 +516,98 @@ def _mxm_delta(A: GBMatrix, B: torch.Tensor, sr: S.Semiring, d: Descriptor,
     return finalize(d, yb, out, sr.identity)
 
 
+def _sharded_frontier(B):
+    """B of a sharded product: a dense frontier tensor (a dense handle is
+    one); a sparse operand raises the mesh's TypeError."""
+    if isinstance(B, GBMatrix) and B.fmt == "dense":
+        B = B.store
+    if isinstance(B, (GBMatrix, BSR, ELL, BitELL, DeltaMatrix) + _SHARDED):
+        kind = _operand_kind(B)[0]
+        raise TypeError(
+            f"grb.mxm: a sharded A multiplies a dense (k, F) frontier "
+            f"array; got a sparse {kind} operand for B. Gather it "
+            f"explicitly (B.to_dense()) or keep both sides unsharded for "
+            f"the SpGEMM path.")
+    return torch.as_tensor(B)
+
+
+def _mxm_sharded(A: GBMatrix, B, sr: S.Semiring, d: Descriptor,
+                 out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mesh dispatch: C<M> accum= A (x) B with A's rows sharded over
+    "data". transpose_a is served from a linked sharded transpose when
+    there is one; otherwise the transposed (psum_scatter) lowering reads
+    the forward row shards. The blend runs on the global result, as on
+    one device."""
+    B = _sharded_frontier(B)
+    transposed = False
+    if d.transpose_a:
+        if A._T is not None:
+            A = A.T
+        else:
+            transposed = True
+        d = d.with_(transpose_a=False)
+    d = d.with_(mask=_dense_mask(d.mask))
+    # or_and frontiers ride the mesh as packed words: the per-hop
+    # all-gather (row form) / psum_scatter (transposed form) payload cut
+    packed = (sr.mode == "dot_indicator" and B.dim() == 2
+              and _pack_wanted(B.shape[1]))
+    y = _shard.mxm(A.store, B, sr, transposed=transposed, packed=packed)
+    return finalize(d, y, out, sr.identity)
+
+
+def _mxm_bitshard(A: GBMatrix, B, sr: S.Semiring, d: Descriptor,
+                  out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mesh dispatch for bit-packed adjacency: every or_and call runs bit
+    level (pack at the boundary, ``bitadj.sharded_mxm_words``: one word
+    all-gather, the word kernel on every shard). transpose_a always reads
+    the linked twin distribute built. Other semirings take the cached
+    ShardedELL materialization and the sharded ELL route."""
+    B = _sharded_frontier(B)
+    if d.transpose_a:
+        if A._T is None or A._T.fmt != "bitshard":
+            raise RuntimeError(
+                "grb.mxm: transpose_a on bit-sharded storage needs the "
+                "linked transpose twin grb.distribute builds — distribute "
+                "the handle (not a hand-wrapped ShardedBitELL) first")
+        A = A.T
+        d = d.with_(transpose_a=False)
+    d = d.with_(mask=_dense_mask(d.mask))
+    if sr.mode == "dot_indicator" and B.dim() == 2:
+        f = B.shape[1]
+        Yw = _bitadj.sharded_mxm_words(A.store, _bitmap.pack(B))
+        if d.mask is not None and d.mask_only and out is None:
+            Mw = _bitmap.pack(d.mask)
+            Yw = (_bitmap.word_andnot(Yw, Mw) if d.complement
+                  else _bitmap.word_and(Yw, Mw))
+            return _bitmap.unpack(Yw, f)
+        return finalize(d, _bitmap.unpack(Yw, f), out, sr.identity)
+    Ae = GBMatrix(A.store.materialize_sharded(), name=A.name)
+    if A._T is not None and A._T.fmt == "bitshard":
+        Ae.link_transpose(GBMatrix(A._T.store.materialize_sharded(),
+                                   name=A._T.name))
+    return _mxm_sharded(Ae, B, sr, d, out)
+
+
 def mxm(A, B, sr: S.Semiring, d: Descriptor = NULL,
         out: Optional[torch.Tensor] = None):
     """C<M> accum= A (x) B over a semiring. A: GBMatrix (or raw storage).
     B: a dense (k, F) frontier or dense handle (returns a dense C), or a
     BSR handle when A is BSR (SpGEMM, returns a BSR handle; out must be
     None and the semiring a dot mode); delta operands against a sparse B
-    take their materialization. ``out`` is the existing C for
-    accum/blend, None meaning replace-into-empty."""
+    take their materialization. A sharded A multiplies a dense frontier
+    on its mesh; a sharded B needs a sharded A. ``out`` is the existing C
+    for accum/blend, None meaning replace-into-empty."""
     A = GBMatrix.wrap(A)
+    if A.fmt == "sharded":
+        return _mxm_sharded(A, B, sr, d, out)
+    if A.fmt == "bitshard":
+        return _mxm_bitshard(A, B, sr, d, out)
+    if isinstance(B, _SHARDED) or (
+            isinstance(B, GBMatrix) and B.fmt in ("sharded", "bitshard")):
+        raise TypeError(
+            "grb.mxm: B is sharded but A is not — operand kinds must match. "
+            "Distribute A onto the same mesh (grb.distribute(A, mesh)) or "
+            "gather B explicitly (B.to_dense()).")
     if d.transpose_a:
         A = A.T
         d = d.with_(transpose_a=False)
@@ -485,12 +669,30 @@ def mxm_words(A, Bw: torch.Tensor, transpose_a: bool = False) -> torch.Tensor:
     goes to ``kernels.ops.ell_mxv_packed``, BitELL to
     ``kernels.ops.bitadj_mxv_packed``; each launches its CUDA kernel for
     CUDA tensors and runs its plain version for CPU tensors. Dense storage
-    takes ``core.ops.dense_mxm_packed``. BSR and delta storage have no
+    takes ``core.ops.dense_mxm_packed``. Sharded storage runs the mesh
+    lowering, which calls this function on each shard-local handle (so a
+    CUDA shard launches its word kernel). BSR and delta storage have no
     packed route: they detour through the float mxm (the ``bsr_mxm``
     kernel, or the delta composition) on the device and re-pack;
     ``words_route_ok`` keeps hop loops off that detour."""
     from repro_torch.kernels import ops as kops   # lazy: kernels import core
     A = GBMatrix.wrap(A)
+    if A.fmt == "sharded":
+        transposed = False
+        if transpose_a:
+            if A._T is not None:
+                A = A.T
+            else:
+                transposed = True
+        return _shard.mxm_words(A.store, Bw, transposed=transposed)
+    if A.fmt == "bitshard":
+        if transpose_a:
+            if A._T is None or A._T.fmt != "bitshard":
+                raise RuntimeError(
+                    "grb.mxm_words: transpose_a on bit-sharded storage "
+                    "needs the linked twin grb.distribute builds")
+            A = A.T
+        return _bitadj.sharded_mxm_words(A.store, Bw)
     if transpose_a:
         A = A.T
     if A.fmt == "bitadj":
@@ -504,14 +706,14 @@ def mxm_words(A, Bw: torch.Tensor, transpose_a: bool = False) -> torch.Tensor:
 
 
 def words_route_ok(A, f: int) -> bool:
-    """Gate for word-resident hop loops: BitELL always (the adjacency
-    itself is packed), ELL and dense when the packing policy wants a
-    width-``f`` frontier packed, BSR and delta never (they keep the float
-    hop loop)."""
+    """Gate for word-resident hop loops: BitELL and ShardedBitELL always
+    (the adjacency itself is packed), ELL, sharded ELL and dense when the
+    packing policy wants a width-``f`` frontier packed, BSR and delta
+    never (they keep the float hop loop)."""
     A = GBMatrix.wrap(A)
-    if A.fmt == "bitadj":
+    if A.fmt in ("bitadj", "bitshard"):
         return True
-    return A.fmt in ("dense", "ell") and _pack_wanted(f)
+    return A.fmt in ("dense", "ell", "sharded") and _pack_wanted(f)
 
 
 def _columnize(v) -> Optional[torch.Tensor]:
@@ -555,11 +757,17 @@ def vxm(x: torch.Tensor, A, sr: S.Semiring, d: Descriptor = NULL,
 # ELL); mixing a sparse operand with a dense tensor raises TypeError.
 
 def _operand_kind(x):
-    """('bsr' | 'ell' | 'dense', storage) of a handle, store or tensor.
-    BitELL takes its cached ELL materialization and delta storage its
-    materialization in the base's format (folded per call), so the whole element-wise
-    / extract / assign family sees the exact post-write entries; storage
-    the port does not hold raises NotImplementedError (``_fmt_of``)."""
+    """('bsr' | 'ell' | 'sharded' | 'dense', storage) of a handle, store
+    or tensor. BitELL takes its cached ELL materialization, ShardedBitELL
+    its cached ShardedELL and delta storage its materialization in the
+    base's format (folded per call), so the whole element-wise / extract /
+    assign family sees the exact post-write entries; storage the port
+    does not hold raises NotImplementedError (``_fmt_of``)."""
+    s = x.store if isinstance(x, GBMatrix) else x
+    if isinstance(s, ShardedBitELL):
+        return "sharded", s.materialize_sharded()
+    if isinstance(s, ShardedELL):
+        return "sharded", s
     x = _storage(x)
     if isinstance(x, BSR):
         return "bsr", x
@@ -568,6 +776,125 @@ def _operand_kind(x):
     if isinstance(x, (torch.Tensor, np.ndarray)):
         return "dense", torch.as_tensor(x)
     _fmt_of(x)
+
+
+def _unshard(x):
+    """The gathered view of a sharded operand (ELL, a handle staying a
+    handle); other operands pass through."""
+    if x is None:
+        return None
+    kind, s = _operand_kind(x)
+    if kind != "sharded":
+        return x
+    e = s.to_ell()
+    return GBMatrix(e, name=x.name) if isinstance(x, GBMatrix) else e
+
+
+def _sharded_store(x):
+    """x's sharded storage, or None (no materialization of other kinds)."""
+    s = x.store if isinstance(x, GBMatrix) else x
+    return s if isinstance(s, _SHARDED) else None
+
+
+def _sharded_pair_mesh(fn: str, a, b, out=None):
+    """Pairing contract of the element-wise family: both main operands
+    sharded on one mesh (out sharded or None) -> that mesh; no sharded
+    operand -> None; anything mixed -> TypeError naming the kinds."""
+    given = [x for x in (a, b) if x is not None]
+    shd = [s for s in map(_sharded_store, given) if s is not None]
+    so = _sharded_store(out) if out is not None else None
+    if not shd:
+        if so is not None:
+            raise TypeError(
+                f"grb.{fn}: out= is sharded but the operands are not — "
+                f"operand kinds must match; distribute the operands "
+                f"(grb.distribute) or gather out (out.to_ell())")
+        return None
+    if len(shd) != len(given):
+        got = " and ".join(_operand_kind(x)[0] for x in given)
+        raise TypeError(
+            f"grb.{fn}: operand kinds must match — a sharded matrix pairs "
+            f"only with another sharded matrix on the same mesh; got {got}. "
+            f"Distribute the unsharded side (grb.distribute(x, mesh)) or "
+            f"gather the sharded one (x.to_ell() / x.to_dense()).")
+    mesh = shd[0].mesh
+    for s in shd[1:]:
+        if s.mesh != mesh:
+            raise TypeError(f"grb.{fn}: sharded operands live on different "
+                            f"meshes — distribute both onto one mesh")
+    if so is not None and so.mesh != mesh:
+        raise TypeError(f"grb.{fn}: out= lives on a different mesh than the "
+                        f"operands — distribute all three onto one mesh")
+    return mesh
+
+
+# stable-identity ops for the shard-local merge (graph2d.ewise_2d caches
+# per (mesh, mode, op); module-level callables keep the cache warm)
+def _take_second(a, b):           # mask restricts never consult the op
+    del a
+    return b
+
+
+def _disjoint_concat(a, b):       # unions of provably disjoint patterns
+    return a + b
+
+
+def _sharded_restrict(res: ShardedELL, mask, complement: bool) -> ShardedELL:
+    """Mask restrict on a sharded result, shard-local: a same-mesh sharded
+    mask merges through the slot-aligned pass, any dense or unsharded mask
+    takes the per-slot dense gather. Only a mask sharded on another mesh
+    gathers (counted, through to_ell)."""
+    m = mask.store if isinstance(mask, GBMatrix) else mask
+    if isinstance(m, ShardedBitELL):
+        m = m.materialize_sharded()
+    if isinstance(m, ShardedELL) and m.mesh == res.mesh:
+        if m.shape != res.shape:
+            raise ValueError(f"descriptor mask shape {tuple(m.shape)} != "
+                             f"result {tuple(res.shape)}")
+        return _shard.merge_stored(res, m, _take_second,
+                                   "mask_c" if complement else "mask")
+    dense = _dense_mask(mask)
+    if tuple(dense.shape) != tuple(res.shape):
+        raise ValueError(f"descriptor mask shape {tuple(dense.shape)} != "
+                         f"result {tuple(res.shape)}")
+    return _shard.restrict_dense(res, dense, complement)
+
+
+def _sharded_blend(d: Descriptor, res: ShardedELL,
+                   out: Optional[ShardedELL]) -> ShardedELL:
+    """The structural blend rule (union-accum, empty outside the mask) on
+    ShardedELL storage, from shard-local merges only."""
+    if d.accum is not None and out is not None:
+        res = _shard.merge_stored(out, res, d.accum.op, "union")
+    if d.mask is None:
+        return res
+    z_in = _sharded_restrict(res, d.mask, d.complement)
+    if out is None or d.replace:
+        return z_in
+    old = _sharded_restrict(out, d.mask, not d.complement)
+    return _shard.merge_stored(z_in, old, _disjoint_concat, "union")
+
+
+def _sharded_out(out, fn: str, mesh, shape) -> Optional[ShardedELL]:
+    """An out= operand for the shard-local blend: a same-mesh sharded out
+    passes through, an unsharded sparse out is placed on the mesh, a
+    dense out raises the family's TypeError."""
+    if out is None:
+        return None
+    kind, store = _operand_kind(out)
+    if kind == "dense":
+        raise TypeError(f"grb.{fn}: sparse operands need a sparse out= "
+                        f"(GBMatrix/BSR/ELL) or None (got a dense tensor); "
+                        f"wrap it with GBMatrix.from_dense(out, fmt='ell')")
+    if tuple(store.shape) != tuple(shape):
+        raise ValueError(f"grb.{fn}: out shape {store.shape} != result "
+                         f"{shape}")
+    if kind == "sharded":
+        return store                      # same mesh: _sharded_pair_mesh ran
+    if kind == "bsr":
+        store = ELL.from_coo(*store.to_coo(), store.shape,
+                             device=store.device)
+    return ShardedELL.from_ell(store, mesh)
 
 
 def _ewise_pair(a, b, fn: str):
@@ -711,6 +1038,14 @@ def ewise_add(a, b, monoid, d: Descriptor = NULL, out=None):
     TypeError. ``monoid`` is a Monoid or a binary op (named, for BSR).
     """
     op = getattr(monoid, "op", monoid)
+    mesh = _sharded_pair_mesh("ewise_add", a, b, out)
+    if mesh is not None:                 # shard-local slot-aligned merge
+        A, B = _operand_kind(a)[1], _operand_kind(b)[1]
+        if A.shape != B.shape:
+            raise ValueError(f"grb.ewise_add shapes: {A.shape} vs {B.shape}")
+        res = _shard.merge_stored(A, B, op, "union")
+        C = _sharded_out(out, "ewise_add", mesh, A.shape)
+        return GBMatrix(_sharded_blend(d, res, C))
     kind, A, B = _ewise_pair(a, b, "ewise_add")
     if kind == "dense":
         return _structural_finalize_dense(
@@ -730,6 +1065,15 @@ def ewise_mult(a, b, op, d: Descriptor = NULL, out=None):
     patterns are gathered. ``op`` is a binary op (named, for BSR) or a
     Monoid."""
     op = getattr(op, "op", op)
+    mesh = _sharded_pair_mesh("ewise_mult", a, b, out)
+    if mesh is not None:                 # shard-local slot-aligned merge
+        A, B = _operand_kind(a)[1], _operand_kind(b)[1]
+        if A.shape != B.shape:
+            raise ValueError(f"grb.ewise_mult shapes: {A.shape} vs "
+                             f"{B.shape}")
+        res = _shard.merge_stored(A, B, op, "intersect")
+        C = _sharded_out(out, "ewise_mult", mesh, A.shape)
+        return GBMatrix(_sharded_blend(d, res, C))
     kind, A, B = _ewise_pair(a, b, "ewise_mult")
     if kind == "dense":
         both = (A != 0) & (B != 0)
@@ -750,8 +1094,14 @@ def apply(f: Callable, x, d: Descriptor = NULL, out=None):
     """C<M> accum= f(A) — GrB_apply over *stored* entries only: zero
     entries of a dense tensor (and zero lanes inside stored BSR tiles) are
     absent and stay zero whatever f(0). ``f`` is a unary op (named, for
-    BSR)."""
+    BSR). On a sharded operand the map runs on each row shard in place,
+    and the descriptor blend composes shard-local merges."""
+    _sharded_pair_mesh("apply", x, None, out)       # mixed-out contract
     kind, X = _operand_kind(x)
+    if kind == "sharded":
+        res = X.apply_stored(f)
+        C = _sharded_out(out, "apply", X.mesh, X.shape)
+        return GBMatrix(_sharded_blend(d, res, C))
     if kind == "dense":
         raw = torch.where(X != 0, f(X), torch.zeros_like(X))
         return _structural_finalize_dense(d, raw, _dense_out(out, "apply"))
@@ -768,8 +1118,14 @@ def apply(f: Callable, x, d: Descriptor = NULL, out=None):
 def select(pred: Callable, x, d: Descriptor = NULL, out=None):
     """C<M> accum= A where pred(A) — GxB_select over stored entries, with
     the descriptor semantics of :func:`apply`; sparse results prune tiles
-    the predicate emptied. ``pred`` is a predicate (named, for BSR)."""
+    the predicate emptied. ``pred`` is a predicate (named, for BSR).
+    Sharded operands stay on their mesh, as in :func:`apply`."""
+    _sharded_pair_mesh("select", x, None, out)      # mixed-out contract
     kind, X = _operand_kind(x)
+    if kind == "sharded":
+        res = X.select_stored(pred)
+        C = _sharded_out(out, "select", X.mesh, X.shape)
+        return GBMatrix(_sharded_blend(d, res, C))
     if kind == "dense":
         raw = torch.where((X != 0) & pred(X), X, torch.zeros_like(X))
         return _structural_finalize_dense(d, raw, _dense_out(out, "select"))
@@ -870,20 +1226,33 @@ def reduce(x, monoid: S.Monoid, axis=None,
     column (0) and per row (1); "or" means "any stored entry", right for
     negative values. min / max need the absent entries and go through
     to_dense(). BitELL counts straight off its bit-tiles; delta operands
-    compose plus / or from their base and patch (``_reduce_delta``). Sparse
-    plus sums accumulate in float64; the result has ``dtype``."""
+    compose plus / or from their base and patch (``_reduce_delta``). Sharded
+    operands reduce on the mesh: plus / or with per-row sums shard-local
+    and full / per-column sums a psum over "data", min / max with a
+    stored-entry pmin / pmax and a stored-count compare
+    (``graph2d.reduce_minmax_2d``). Sparse plus sums accumulate in
+    float64; the result has ``dtype``."""
     s = x.store if isinstance(x, GBMatrix) else x
     if isinstance(s, DeltaMatrix):
         return _reduce_delta(x if isinstance(x, GBMatrix) else GBMatrix(s),
                              monoid, axis, dtype)
-    if (isinstance(s, BitELL) and monoid.name in ("plus", "or")
-            and axis in (None, 0, 1)):
-        return _bitadj.reduce_stored(s, monoid, axis, dtype)
+    if monoid.name in ("plus", "or") and axis in (None, 0, 1):
+        if isinstance(s, BitELL):
+            return _bitadj.reduce_stored(s, monoid, axis, dtype)
+        if isinstance(s, ShardedBitELL):
+            return _bitadj.sharded_reduce_stored(s, monoid, axis, dtype)
     kind, X = _operand_kind(s)
     if kind == "bsr":
         return _reduce_bsr(X, monoid, axis, dtype)
     if kind == "ell":
         return _reduce_ell(X, monoid, axis, dtype)
+    if kind == "sharded":
+        if axis in (None, 0, 1):
+            if monoid.name in ("plus", "or"):
+                return _shard.reduce_stored(X, monoid, axis).to(dtype)
+            if monoid.name in ("min", "max"):
+                return _shard.reduce_minmax(X, monoid, axis).to(dtype)
+        return monoid.reduce(X.to_dense(), dim=axis).to(dtype)  # counted
     return monoid.reduce(X.to(dtype), dim=axis)
 
 
@@ -918,7 +1287,22 @@ def extract(A, rows=None, cols=None, d: Descriptor = NULL, out=None):
     slice or range, or a unique index vector. Dense tensors give dense
     tensors; sparse operands stay sparse (BSR by tile surgery when both
     ranges are contiguous and block-aligned, COO relabeling otherwise).
-    The descriptor applies to the (len(rows), len(cols)) result."""
+    The descriptor applies to the (len(rows), len(cols)) result. Sharded
+    operands stay on their mesh for column subsets (rows=None: a
+    shard-local LUT relabel); row subsets re-partition the "data" axis and
+    take the counted gather."""
+    mesh = _sharded_pair_mesh("extract", A, None, out)
+    if mesh is not None:
+        SA = _operand_kind(A)[1]
+        n, m = SA.shape
+        I = _norm_index(rows, n, "extract")
+        J = _norm_index(cols, m, "extract")
+        if rows is None or (len(I) == n and np.array_equal(I, np.arange(n))):
+            sub = _shard.extract_cols(SA, J)
+            C = _sharded_out(out, "extract", mesh, sub.shape)
+            return GBMatrix(_sharded_blend(d, sub, C))
+        return distribute(extract(_unshard(A), rows, cols, d, _unshard(out)),
+                          mesh)
     kind, SA = _operand_kind(A)
     n, m = SA.shape
     I = _norm_index(rows, n, "extract")
@@ -943,6 +1327,46 @@ def extract(A, rows=None, cols=None, d: Descriptor = NULL, out=None):
                                              (len(I), len(J)), SA.device))
 
 
+def _assign_sharded_cols(C, sc: ShardedELL, A, J: np.ndarray,
+                         d: Descriptor):
+    """C(:, J)<M> accum= A with C sharded, on the mesh: the region (all
+    rows x J) splits from the rest of C by shard-local column LUTs, the
+    blend runs on the (n, len(J)) region in local coordinates, and the
+    result relabels back into global columns and unions with the
+    untouched entries (disjoint patterns: the merge never consults the
+    op)."""
+    n, m = sc.shape
+    ka, sa = _operand_kind(A)
+    if tuple(sa.shape) != (n, len(J)):
+        raise ValueError(f"grb.assign: A shape {tuple(sa.shape)} != region "
+                         f"{(n, len(J))}")
+    if len(J) == 0:
+        return C if isinstance(C, GBMatrix) else sc
+    if ka == "sharded":
+        if sa.mesh != sc.mesh:
+            raise TypeError("grb.assign: sharded operands live on different "
+                            "meshes — distribute both onto one mesh")
+    else:
+        # place the region operand on C's mesh (a put, not a gather)
+        if ka == "dense":
+            dn = sa.cpu().numpy()
+            r, c = np.nonzero(dn)
+            e = ELL.from_coo(r, c, dn[r, c], dn.shape, device=sc.device)
+        elif isinstance(sa, ELL):
+            e = sa
+        else:
+            e = ELL.from_coo(*sa.to_coo(), sa.shape, device=sa.device)
+        sa = ShardedELL.from_ell(e, sc.mesh)
+    lut_out = np.arange(m, dtype=np.int32)
+    lut_out[J] = -1
+    c_out = _shard.relabel_cols(sc, lut_out, m)     # entries outside region
+    c_in = _shard.extract_cols(sc, J)               # region, local coords
+    blended = _sharded_blend(d, sa, c_in)
+    back = _shard.relabel_cols(blended, np.asarray(J, np.int32), m)
+    return GBMatrix(_shard.merge_stored(c_out, back, _disjoint_concat,
+                                        "union"))
+
+
 def assign(C, A, rows=None, cols=None, d: Descriptor = NULL):
     """C(rows, cols)<M> accum= A — GrB_assign, functional (C is not
     mutated; a new handle or tensor of C's kind is returned).
@@ -950,7 +1374,24 @@ def assign(C, A, rows=None, cols=None, d: Descriptor = NULL):
     A is (len(rows), len(cols)), and so is the descriptor mask. Without
     accum or mask the region's pattern is *replaced* by A's. Sparse C stays
     sparse: its entries split by region on the host and the blend runs on
-    COO entry sets."""
+    COO entry sets. Sharded C stays on its mesh for column regions
+    (rows=None: LUT relabels and merges, shard-local); row subsets
+    re-partition the "data" axis and take the counted gather. A may be
+    sharded beside C (same mesh) or unsharded (placed on the mesh)."""
+    if _sharded_store(C) is not None or _sharded_store(A) is not None:
+        kc, sc = _operand_kind(C)
+        if kc != "sharded":
+            raise TypeError(
+                "grb.assign: A is sharded but C is not — operand kinds must "
+                "match; distribute C (grb.distribute) or gather A "
+                "(A.to_ell())")
+        n, m = sc.shape
+        I = _norm_index(rows, n, "assign")
+        J = _norm_index(cols, m, "assign")
+        if rows is None or (len(I) == n and np.array_equal(I, np.arange(n))):
+            return _assign_sharded_cols(C, sc, A, J, d)
+        return distribute(assign(_unshard(C), _unshard(A), rows, cols, d),
+                          sc.mesh)
     kindC, SC = _operand_kind(C)
     n, m = SC.shape
     I = _norm_index(rows, n, "assign")

@@ -8,8 +8,9 @@ Port of ``repro.core.ops``:
                   port of ``bsr_mxm_jnp`` and the plain version of the CUDA
                   kernel ``kernels.bsr_mxm``.
   ell_mxm         the float gather + masked reduce (plus_times walk counts
-                  and narrow or_and frontiers). The JAX package runs it as
-                  XLA outside any Pallas kernel, so it stays plain torch.
+                  and narrow or_and frontiers), over chunks of rows. The
+                  JAX package runs it as XLA outside any Pallas kernel, so
+                  it stays plain torch.
   ell_mxm_packed  the or_and gather-OR on packed frontier words: the plain
                   version of the CUDA kernel ``kernels.bitmap_mxv``.
   dense_mxm_packed  the same for a dense A, over chunks of its columns.
@@ -30,7 +31,9 @@ from repro_torch.core.ell import ELL
 
 # entries of one chunk's gathered frontier tiles (or bcast products) in
 # bsr_mxm_plain: the JAX reference gathers one X tile per stored tile at
-# once, (nnzb, b, F), which is 24.6 GB for Graph500 scale 16 at F = 512
+# once, (nnzb, b, F), which is 24.6 GB for Graph500 scale 16 at F = 512;
+# and of one chunk's gathered (rows, deg, F) frontier in ell_mxm, 105 GB
+# for the scale-16 ELL (a hub of 6,272 slots) at F = 64
 _CHUNK_ENTRIES = 1 << 27
 
 
@@ -110,10 +113,24 @@ def bsr_mxm_plain(A: BSR, X: torch.Tensor, sr: S.Semiring) -> torch.Tensor:
 
 def ell_mxm(A: ELL, X: torch.Tensor, sr: S.Semiring) -> torch.Tensor:
     """Y[i,f] = add_{j in adj(i)} mul(w_ij, X[j,f]) via gather + masked
-    reduce."""
-    Xg = X.to(torch.float32)[A.indices.long()]         # (n, deg, f)
-    w = A.values[:, :, None]
-    m = A.mask[:, :, None]
+    reduce, over chunks of rows so the gathered (rows, deg, f) frontier
+    stays within ``_CHUNK_ENTRIES`` (each row reduces whole, so the result
+    does not depend on the chunking)."""
+    n = A.shape[0]
+    step = max(1, _CHUNK_ENTRIES // max(A.max_deg * X.shape[1], 1))
+    X = X.to(torch.float32)
+    if step >= n:
+        return _ell_mxm_rows(A.indices, A.mask, A.values, X, sr)
+    return torch.cat([_ell_mxm_rows(A.indices[r0:r0 + step],
+                                    A.mask[r0:r0 + step],
+                                    A.values[r0:r0 + step], X, sr)
+                      for r0 in range(0, n, step)])
+
+
+def _ell_mxm_rows(indices, mask, values, X, sr) -> torch.Tensor:
+    Xg = X[indices.long()]                             # (rows, deg, f)
+    w = values[:, :, None]
+    m = mask[:, :, None]
     ident = torch.tensor(sr.identity, dtype=torch.float32, device=X.device)
     if sr.mode == "dot":
         term = torch.where(m, w * Xg, ident)

@@ -20,8 +20,11 @@ without a card); the patches and materializations the deltas compose
 follow their base. The host keeps the write state (the live edge set, the
 op log) and the deltas' COO sets.
 
-The JAX package's sharded serving (``mesh=``) is not ported: passing a
-mesh raises ``NotImplementedError`` (ROADMAP item 10).
+Sharded serving: ``query(..., mesh=m)`` / ``context(..., mesh=m)`` /
+``server(..., mesh=m)`` serve the same reads over a ``distr.mesh.Mesh``.
+The frozen view is compacted to ELL (the mesh layout has no delta
+lowering) and its relation handles are distributed onto the mesh, cached
+per mesh on the view's handles.
 """
 from __future__ import annotations
 
@@ -39,13 +42,6 @@ from repro_torch.graph.graph import Graph, GraphBuilder, Relation, _device
 from repro_torch.query import qast as A
 from repro_torch.query.executor import ExecutionContext, Result, explain
 from repro_torch.query.parser import parse
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded serving) is not ported: the mesh slice is "
-            "ROADMAP item 10; serve on one device")
 
 
 class MutableGraph:
@@ -345,8 +341,8 @@ class Database:
     # -- commands ------------------------------------------------------------
     def query(self, name: str, text: str, mesh=None) -> Result:
         """Run one command: CREATE / DELETE are fsynced to the AOF, then
-        applied; anything else reads the graph's freshest frozen view."""
-        _no_mesh(mesh)
+        applied; anything else reads the graph's freshest frozen view (on
+        ``mesh`` when one is given)."""
         q = parse(text)
         if isinstance(q, A.CreateQuery):
             self._append_aof(name, text)
@@ -354,22 +350,25 @@ class Database:
         if isinstance(q, A.DeleteQuery):
             self._append_aof(name, text)
             return self._apply_delete(name, q)
-        return self.context(name).run(q)
+        return self.context(name, mesh=mesh).run(q)
 
     def context(self, name: str, mesh=None) -> ExecutionContext:
         """Execution surface over the named graph's frozen view. The view
         is snapshot-consistent: writes issued after this call never appear
-        in it."""
-        _no_mesh(mesh)
-        return ExecutionContext(self._graph(name).freeze())
+        in it. With a mesh the graph is frozen as ELL with its pending
+        deltas compacted, and the relation handles are distributed onto
+        the mesh."""
+        g = self._graph(name).freeze(fmt="ell" if mesh is not None else None,
+                                     compact=mesh is not None)
+        return ExecutionContext(g, mesh=mesh)
 
     def server(self, name: str, mesh=None, **kw):
         """Continuous-batching server over the named graph: each batch
         serves the freshest freeze, so writes committed through ``query()``
-        between batches are visible to the next one."""
-        _no_mesh(mesh)
+        between batches are visible to the next one (served over ``mesh``
+        when one is given)."""
         from repro_torch.engine.server import QueryServer
-        return QueryServer(self._graph(name), **kw)
+        return QueryServer(self._graph(name), mesh=mesh, **kw)
 
     def explain(self, name: str, text: str) -> str:
         return explain(self._graph(name).freeze(), text)

@@ -44,6 +44,11 @@ Serving a mutable source: every batch serves the freshest
 snapshot-consistent freeze (cached per write epoch upstream, so an
 unchanged graph reuses the same context). A callable is called per batch;
 a plain frozen `Graph` is served as-is.
+
+Serving over a mesh (``mesh=``, a ``distr.mesh.Mesh``): the context
+distributes every relation onto it, so each batch's hops run as mesh
+collectives with the word kernels on every shard; a mutable source is
+frozen as compacted ELL (the mesh layout has no delta lowering).
 """
 from __future__ import annotations
 
@@ -117,13 +122,15 @@ class QueryServer:
     max_width  admission cap: total frontier columns per sweep.
     max_batch  secondary cap on member count per sweep.
     align      pad sweep widths to packed-lane alignment (LANE_ALIGN).
+    mesh       serve over this mesh (``distr.mesh.Mesh``), or None.
     """
 
     def __init__(self, source, max_batch: int = 512,
                  max_width: int = MAX_WIDTH, align: bool = True,
-                 graph: Optional[str] = None):
+                 graph: Optional[str] = None, mesh=None):
         self._source = source
         self._graph_name = graph
+        self.mesh = mesh
         self.max_batch = max_batch
         self.max_width = max_width
         self.align = align
@@ -220,7 +227,7 @@ class QueryServer:
         the same ExecutionContext (and its hop-matrix caches)."""
         g = self._snapshot_graph()
         if self._ctx is None or self._ctx.graph is not g:
-            self._ctx = ExecutionContext(g)
+            self._ctx = ExecutionContext(g, mesh=self.mesh)
         return self._ctx
 
     def _snapshot_graph(self) -> Graph:
@@ -229,13 +236,16 @@ class QueryServer:
             return src
         if callable(src):                   # refresh hook
             return src()
+        # a mesh serves compacted ELL: distribute has no delta lowering
+        fmt = "ell" if self.mesh is not None else None
         if hasattr(src, "freeze"):          # MutableGraph
-            return src.freeze()
+            return src.freeze(fmt=fmt, compact=self.mesh is not None)
         if hasattr(src, "graphs"):          # Database
             if self._graph_name is None:
                 raise TypeError("QueryServer(Database) needs graph=<name> "
                                 "(or use Database.server(name))")
-            return src._graph(self._graph_name).freeze()
+            return src._graph(self._graph_name).freeze(
+                fmt=fmt, compact=self.mesh is not None)
         raise TypeError(
             f"cannot serve {type(src).__name__}: expected Graph, "
             f"MutableGraph, Database (+graph=), or a callable -> Graph")

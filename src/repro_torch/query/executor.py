@@ -25,6 +25,14 @@ call and returns a tensor on the graph's device, one column per source
 (seeded procedures) or one shared column; its host half (``project``)
 turns a member's columns into YIELD rows. ``project`` materializes rows
 on the host; the ``.cpu()`` there is where the host waits for the device.
+
+With ``mesh`` set (a ``distr.mesh.Mesh``), every relation handle is
+distributed onto it (``grb.distribute``, cached on the handle per mesh)
+and the same expand / run calls lower to the mesh collectives: the context
+carries the mesh, no primitive takes a sharding argument. Frontiers live
+on the mesh's first device. It needs ELL or BitELL relations (grb raises
+a TypeError naming them otherwise; ``engine.Database`` freezes mesh-served
+graphs as compacted ELL for this reason).
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from repro_torch.core import bitmap as _bitmap, grb, semiring as S
 from repro_torch.core.bsr import bsr_union, spgemm
 from repro_torch.core.grb import Descriptor
+from repro_torch.distr.mesh import Mesh
 from repro_torch.graph.graph import Graph
 from repro_torch.query import qast as A
 from repro_torch.query.parser import parse
@@ -290,17 +299,32 @@ class ExecutionContext:
     traverse   seeds -> final frontier for a plan (launched, not awaited)
     project    frontier matrix -> Result rows per the plan's RETURN clause
     run        parse/plan/execute a full read query (also accepts a Plan)
+
+    With ``mesh`` set, each relation handle is distributed onto it on first
+    use (see the module doc).
     """
 
     # multi-hop SpGEMM fast path is only planned for adjacencies up to this
     # many vertices (hop-matrix fill grows with hop count)
     SPGEMM_EXPAND_MAX_N = 16384
 
-    def __init__(self, graph: Graph, spgemm_expand: bool = True):
+    def __init__(self, graph: Graph, spgemm_expand: bool = True, mesh=None):
         self.graph = graph
         self.spgemm_expand = spgemm_expand
+        self.mesh = mesh
+        # relation name -> the handle this context serves (distributed
+        # onto the mesh when there is one)
+        self._mats = {}
         # (relation, transpose, max_hops) -> hop-matrix handle
         self._hops = {}
+
+    @property
+    def device(self) -> torch.device:
+        """Where frontiers live: the mesh's first device, or the graph's."""
+        # a mesh that is not a Mesh is refused where a relation resolves
+        # (grb.distribute's TypeError), not here
+        return (self.mesh.home if isinstance(self.mesh, Mesh)
+                else self.graph.device)
 
     # -- primitives ----------------------------------------------------------
     def matrix(self, rel: Optional[str]) -> grb.GBMatrix:
@@ -312,7 +336,13 @@ class ExecutionContext:
         if r is None:
             raise ValueError(f"no relation {rel!r} "
                              f"(have: {sorted(self.graph.relations)})")
-        return r.A
+        m = self._mats.get(r.name)
+        if m is None:
+            m = r.A
+            if self.mesh is not None:
+                m = grb.distribute(m, self.mesh)
+            self._mats[r.name] = m
+        return m
 
     def node_mask(self, label, preds=None) -> np.ndarray:
         """bool (n,): vertices carrying `label` and passing all predicates."""
@@ -329,7 +359,7 @@ class ExecutionContext:
         f = len(seeds)
         if keep is None:
             keep = np.ones(f, dtype=bool)
-        dev = self.graph.device
+        dev = self.device
         B = torch.zeros((self.graph.n, f), dtype=torch.float32, device=dev)
         B[torch.from_numpy(np.where(keep, seeds, 0)).to(dev),
           torch.arange(f, device=dev)] = \
@@ -555,8 +585,8 @@ def _sr_add(sr: S.Semiring, a, b):
 
 
 # -- top level ----------------------------------------------------------------
-def execute(graph: Graph, query) -> Result:
-    return ExecutionContext(graph).run(query)
+def execute(graph: Graph, query, mesh=None) -> Result:
+    return ExecutionContext(graph, mesh=mesh).run(query)
 
 
 def _colname(r: A.ReturnItem) -> str:

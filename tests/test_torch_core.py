@@ -285,6 +285,30 @@ def test_ell_packed_matches_reference_and_pallas(n, k, w):
     assert not want[0].any() and not want[n - 1].any()     # empty rows
 
 
+@pytest.mark.parametrize("srname", ["plus_times", "or_and", "min_plus",
+                                    "max_plus"])
+def test_ell_mxm_in_row_chunks_matches_reference(srname, monkeypatch):
+    """The float ELL product runs in chunks of rows (the gathered (rows,
+    deg, F) frontier bounded): the same values whatever the chunk, equal
+    to the JAX package's product (integer weights and frontier: exact)."""
+    from repro.core import semiring as JS
+    from repro_torch.core import semiring as TS
+    rng = np.random.default_rng(3)
+    n, k, f = 45, 70, 5
+    r, c = coo(rng, n, k, 4 * n, empty_rows=(0, n - 1))
+    v = (1 + (r * 7 + c * 3) % 3).astype(np.float32)
+    X = np.where(rng.random((k, f)) < 0.3, rng.integers(1, 3, (k, f)),
+                 0).astype(np.float32)
+    te = TELL.from_coo(r, c, v, (n, k), device="cpu")
+    want = np.asarray(jops.ell_mxm(JELL.from_coo(r, c, v, (n, k)),
+                                   jnp.asarray(X), JS.SEMIRINGS[srname]))
+    whole = tops.ell_mxm(te, torch.from_numpy(X), TS.SEMIRINGS[srname])
+    monkeypatch.setattr(tops, "_CHUNK_ENTRIES", te.max_deg * f * 7)
+    chunked = tops.ell_mxm(te, torch.from_numpy(X), TS.SEMIRINGS[srname])
+    assert torch.equal(chunked, whole)
+    np.testing.assert_array_equal(whole.numpy(), want)
+
+
 @pytest.mark.parametrize("n,k,w", KERNEL_CASES)
 def test_bitadj_panels_match_reference_and_pallas(n, k, w):
     rng = np.random.default_rng(n * 11 + w)

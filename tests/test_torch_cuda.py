@@ -2,8 +2,9 @@
 PyTorch version, the k-hop slice (ELL, BitELL and BSR) on a CUDA graph
 against the same slice on the CPU, the analytics (triangles, k-truss,
 similarity) and the remaining algorithms (BFS, k-hop, SSSP, PageRank, WCC,
-centrality, label propagation) on the card against the CPU, and
-``CALL algo.*`` through the server on the card.
+centrality, label propagation) on the card against the CPU,
+``CALL algo.*`` through the server on the card, and the mesh: meshes of
+4 and 16 positions on one card, the word kernels run on every shard.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -1290,3 +1291,149 @@ def test_snapshot_isolation_with_device_caches_built(fmt):
     for s in range(0, 512, 37):
         q = tmpl.replace("RETURN", f"WHERE id(a) = {s} RETURN")
         assert db.query("g", q).rows == cpu.query("g", q).rows
+
+
+# -- the mesh: the word kernels on every shard of a one-card mesh -------------
+def _card_mesh(data, pod=1, model=1):
+    from repro_torch.distr.mesh import Mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(np.array([dev] * (pod * data * model), dtype=object)
+                .reshape(pod, data, model), ("pod", "data", "model"))
+
+
+def _mesh_handle(fmt, rng, n):
+    from repro_torch.core import grb
+    r, c = _coo(rng, n, n, 8 * n)
+    key = np.unique(r * n + c)
+    r, c = key // n, key % n
+    store = (ELL.from_coo(r, c, None, (n, n), device="cuda") if fmt == "ell"
+             else BitELL.from_coo(r, c, None, (n, n), device="cuda"))
+    twin = (ELL.from_coo(c, r, None, (n, n), device="cuda") if fmt == "ell"
+            else BitELL.from_coo(c, r, None, (n, n), device="cuda"))
+    h = grb.GBMatrix(store)
+    h.link_transpose(grb.GBMatrix(twin))
+    return h
+
+
+@pytest.mark.parametrize("data", [4, 16])
+@pytest.mark.parametrize("fmt", ["ell", "bitadj"])
+def test_mesh_word_kernels_per_shard(fmt, data):
+    """Every shard's word kernel equals its plain version at the shard's
+    own shapes, padded rows and sentinel panels included (they read as
+    zero), and the mesh product equals the unsharded one on the CPU; one
+    launch a position."""
+    from repro_torch.core import grb
+    from repro_torch.distr import mesh as M
+    rng = np.random.default_rng(data)
+    n = 901                     # rows and 29 panels pad on both meshes
+    h = _mesh_handle(fmt, rng, n)
+    mesh = _card_mesh(data)
+    sh = grb.distribute(h, mesh)
+    assert sh.fmt == ("sharded" if fmt == "ell" else "bitshard")
+    mod = bitmap_mxv if fmt == "ell" else bitadj_mxv
+    xw = _words(rng, n, 5)
+    for t in (False, True):
+        before = mod.launches
+        got = grb.mxm_words(sh, xw, transpose_a=t)
+        torch.cuda.synchronize()
+        assert mod.launches - before == mesh.size
+        src = h.T if t else h
+        store = src.store
+        host = (ELL(shape=store.shape, indices=store.indices.cpu(),
+                    mask=store.mask.cpu(), values=store.values.cpu(),
+                    nnz=store.nnz) if fmt == "ell" else
+                BitELL(shape=store.shape, tiles=store.tiles.cpu(),
+                       cols=store.cols.cpu(), nnz=store.nnz))
+        want = grb.mxm_words(grb.GBMatrix(host), xw.cpu())
+        assert torch.equal(got.cpu(), want)
+        local = (sh.T if t else sh).store.local
+        xp = torch.zeros((n + (-n) % data, 5), dtype=torch.int32,
+                         device="cuda")
+        xp[:n] = xw
+        xg = M.all_gather(mesh, M.shard(mesh, xp, ("data", None)), "data")
+        for i, (e, x) in enumerate(zip(local, xg)):
+            if fmt == "ell":
+                k_, p_ = (bitmap_mxv.ell_mxv_packed(e, x),
+                          ops.ell_mxm_packed(e, x))
+            else:
+                k_, p_ = (bitadj_mxv.bitadj_mxv_packed(e, x),
+                          bitadj.mxm_words(e, x))
+            torch.cuda.synchronize()
+            assert torch.equal(k_, p_), f"shard {i}"
+            rows = e.shape[0]
+            pad_from = n - i * rows          # the last shard's padding
+            if 0 <= pad_from < rows:
+                assert not k_[pad_from:].any()
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 4, 1), (2, 2, 2)])
+@pytest.mark.parametrize("fmt", ["ell", "bitadj"])
+def test_mesh_server_matches_cpu(fmt, mesh_shape):
+    """k-hop through QueryServer(mesh=) on the card gives the CPU's rows
+    and never gathers to the host."""
+    from repro_torch.query.executor import ExecutionContext
+    pod, data, model = mesh_shape
+    g = datagen.rmat_graph(9, fmt=fmt, device="cuda")
+    gc = datagen.rmat_graph(9, fmt=fmt, device="cpu")
+    srv = QueryServer(g, mesh=_card_mesh(data, pod, model))
+    tmpl = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
+    qids = [srv.submit(tmpl, seeds=[s]) for s in range(0, 512, 3)]
+    out = srv.flush()
+    ctx = ExecutionContext(gc)
+    for q, s in zip(qids, range(0, 512, 3)):
+        assert out[q].rows == ctx.run(tmpl.replace(
+            "RETURN", f"WHERE id(a) = {s} RETURN")).rows
+    assert srv.stats["errors"] == 0 and srv.stats["host_transfers"] == 0
+
+
+@pytest.mark.parametrize("fmt", ["ell", "bitadj"])
+def test_mesh_server_reports_a_kernel_that_cannot_load(fmt, monkeypatch):
+    """A shard whose kernel cannot load fails the batch through
+    QueryServer(mesh=): every query reports the KernelError, no shard is
+    retried on the CPU."""
+    from repro_torch.kernels import KernelError, build
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bitmap_mxv, "_bound", None)
+    monkeypatch.setattr(bitadj_mxv, "_bound", None)
+    g = datagen.rmat_graph(9, fmt=fmt, device="cuda")
+    srv = QueryServer(g, mesh=_card_mesh(4))
+    tmpl = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
+    qids = [srv.submit(tmpl, seeds=[s]) for s in range(0, 512, 5)]
+    out = srv.flush()
+    assert srv.pending == 0
+    assert all("KernelError" in (out[q].error or "") for q in qids)
+    assert srv.stats["errors"] == len(qids)
+
+
+def test_mesh_transposed_and_algorithms_on_the_card():
+    """The unlinked transposed lowerings (nibbles at 4 positions, float
+    partials at 16) equal the linked twin's row form, and the algorithms
+    on a mesh equal the unsharded ones, every tensor on the card."""
+    from repro_torch import algorithms as algo
+    from repro_torch.core import grb
+    g = datagen.rmat_graph(10, fmt="ell", device="cuda")
+    A = g.relations["KNOWS"].A
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(np.where(rng.random((g.n, 40)) < 0.05,
+                                  rng.integers(1, 3, (g.n, 40)), 0)
+                         .astype(np.float32)).cuda()
+    for data in (4, 16):
+        mesh = _card_mesh(data)
+        linked = grb.distribute(A, mesh)
+        un = grb.distribute(grb.GBMatrix(A.store), mesh)
+        for sr in (S.OR_AND, S.PLUS_TIMES, S.MIN_PLUS):
+            x = (X > 0).float() if sr is S.OR_AND else X
+            got = grb.mxm(un, x, sr, grb.TRANSPOSE_A)
+            assert got.device.type == "cuda"
+            assert torch.equal(got, grb.mxm(linked, x, sr, grb.TRANSPOSE_A))
+    sh = grb.distribute(A, _card_mesh(2, 2, 2))
+    seeds = np.arange(0, 1024, 41)
+    assert torch.equal(algo.khop_counts(sh, seeds, k=3),
+                       algo.khop_counts(A, seeds, k=3))
+    assert torch.equal(algo.bfs_levels(sh, seeds), algo.bfs_levels(A, seeds))
+    assert torch.equal(algo.wcc(sh), algo.wcc(A))
+    assert float((algo.pagerank(sh) - algo.pagerank(A)).abs().sum()) < 1e-5

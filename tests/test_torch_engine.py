@@ -163,14 +163,19 @@ def test_server_sources():
 
 
 def test_mesh_raises_not_implemented():
+    """mesh= is served now (tests/test_torch_shard.py); what is not a
+    ``distr.mesh.Mesh`` is refused with the JAX package's TypeError, at
+    the first relation a read resolves, through every entry point."""
     db = tdb()
     db.query("g", "CREATE (0)-[:R]->(1)")
-    for call in (lambda: db.query("g", "MATCH (a)-[:R]->(b) RETURN a",
-                                  mesh=object()),
-                 lambda: db.context("g", mesh=object()),
-                 lambda: db.server("g", mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    q = "MATCH (a)-[:R]->(b) RETURN a"
+    for call in (lambda: db.query("g", q, mesh=object()),
+                 lambda: db.context("g", mesh=object()).run(q)):
+        with pytest.raises(TypeError, match="needs a repro_torch"):
             call()
+    srv = db.server("g", mesh=object())
+    qid = srv.submit(q)
+    assert "needs a repro_torch" in srv.flush()[qid].error
 
 
 def test_cuda_database_needs_a_card():
