@@ -66,7 +66,10 @@ Phases, each printing one JSON line:
             WCC and PageRank on the distributed s16 ELL; the unlinked
             transposed lowerings against the linked twin at 4 and 16 row
             shards; each word kernel at one position's local shapes with
-            the gather, kernel and hop times and the all-gather bytes
+            the gather, kernel and hop times and the all-gather bytes,
+            and (``mesh_shards``) at every shard-local handle and word
+            width that the served, algorithm and database phases ran,
+            bit for bit against its plain version
   write_*   the write path (``write_path_cells``): two ``Database`` graphs
             loaded from R-MAT s16 through ``MutableGraph.create_edge``
             (ELL by ``fmt="auto"``, and BSR with 64-tiles), three rounds
@@ -87,8 +90,9 @@ Phases, each printing one JSON line:
             its ELL
 
 then the kernels line (the word kernels' rows with their launches under
-the mesh, ``mesh_launches``, and their rows at a position's local shapes,
-``mesh_shapes``), the nvidia-smi line, and the result line. Any
+the mesh, ``mesh_launches``, and their rows at a position's local shapes
+and at every shard shape the mesh path ran, ``mesh_shapes``), the
+nvidia-smi line, and the result line. Any
 failed check raises and the script exits non-zero without a result line;
 so does a host with no CUDA device. Tolerances: every kernel comparison
 is bit for bit (words, 0/1 indicators, integer walk counts below 2^24,
@@ -167,7 +171,9 @@ MESH_SCALE = 16
 MESH_BITADJ_SCALE = 18
 MESH_BITADJ_SHAPE = (1, 4, 1)
 MESH_ALGO_SOURCES = 64
-MESH_SSSP_SOURCES = 16     # the float min_plus gathers (rows, 6,272, F)
+# SSSP's min_plus hops are plain torch (no word kernel), and 16 sources took
+# 2.13 s of the mesh phases' 88.9 s on an H100 80GB HBM3 at 700 W
+MESH_SSSP_SOURCES = 16
 MESH_WIDE_DATA = 16
 MESH_TRANSPOSED_F = 64
 MESH_WRITES = 1024
@@ -2841,7 +2847,8 @@ def mesh_cells(torch, h):
     served answers, the BFS oracle. Every phase line carries its
     ``elapsed_s`` and the mesh's ``distinct_devices``. Returns the word
     kernels' launches under the mesh and their rows at one position's
-    local shapes."""
+    local shapes: position 0 timed, and every shard-local handle and word
+    width the path handed a word kernel checked bit for bit."""
     from repro_torch import algorithms as algo
     from repro_torch.core import bitadj, grb, ops
     from repro_torch.core import semiring as S
@@ -2849,6 +2856,7 @@ def mesh_cells(torch, h):
     from repro_torch.core.delta import DeltaMatrix
     from repro_torch.core.ell import ELL
     from repro_torch.core.shard import _pad_words
+    from repro_torch.distr import graph2d
     from repro_torch.distr import mesh as M
     from repro_torch.distr.mesh import Mesh
     from repro_torch.engine import Database, QueryServer
@@ -2858,12 +2866,17 @@ def mesh_cells(torch, h):
     card = h.card
     tmpl = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
     words = {"ell_mxv_packed": 0, "bitadj_mxv_packed": 0}
-    shapes = {"ell_mxv_packed": {}, "bitadj_mxv_packed": {}}
+    shapes = {"ell_mxv_packed": {"shards": []},
+              "bitadj_mxv_packed": {"shards": []}}
     names = ("pod", "data", "model")
+    ran = {}            # (id(shard-local handle), W) -> (handle, W)
+    devices = set()     # every device a mesh of these phases placed
 
     def card_mesh(shape):
-        return Mesh(np.array([torch.device(DEVICE)] * int(np.prod(shape)),
+        mesh = Mesh(np.array([torch.device(DEVICE)] * int(np.prod(shape)),
                              dtype=object).reshape(shape), names)
+        devices.update(str(d) for d in mesh.devices.reshape(-1))
+        return mesh
 
     def geometry(mesh):
         return dict(mesh=dict(mesh.shape), positions=mesh.size,
@@ -2871,18 +2884,57 @@ def mesh_cells(torch, h):
 
     def counted(fn, path=True):
         """(fn(), seconds, launches) with the counts at 0 just before; on
-        the path, the word launches join the mesh totals."""
+        the path, the word launches join the mesh totals and each distinct
+        (shard-local handle, word width) a lowering hands the word product
+        is kept for :func:`shard_cases`."""
+        real = graph2d._words
+
+        def seen(local, xg):
+            ran.setdefault((id(local), xg.shape[1]), (local, xg.shape[1]))
+            return real(local, xg)
+
         h.zero_launches()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        if path:
+            graph2d._words = seen
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            graph2d._words = real
         got = h.launches_now()
         if path:
             for k in words:
                 words[k] += got[k]
         return out, dt, got
+
+    def shard_cases(tag, mesh):
+        """Every (shard-local handle, word width) the path ran since the
+        last call, its word kernel against the plain version bit for bit
+        on seeded words (untimed); each of the mesh's row blocks must be
+        among them. Clears the record."""
+        rows = {}
+        for local, w in ran.values():
+            kernel = ("ell_mxv_packed" if isinstance(local, ELL)
+                      else "bitadj_mxv_packed")
+            case = h.ell_case if isinstance(local, ELL) else h.bitadj_case
+            case(local, w, f"mesh {tag} shard {tuple(local.shape)}",
+                 timed=False)
+            key = (kernel, tuple(local.shape), w)
+            rows[key] = rows.get(key, 0) + 1
+        check(len({k for k, _ in ran}) >= mesh.shape["data"],
+              f"mesh {tag}: {len(ran)} shard handles ran, fewer than the "
+              f"{mesh.shape['data']} row blocks")
+        ran.clear()
+        for (kernel, shape, w), count in sorted(rows.items()):
+            shapes[kernel]["shards"].append(dict(
+                tag=tag, shape=list(shape), W=w, handles=count, equal=True))
+        h.emit_phase(phase="mesh_shards", card=card, tag=tag,
+                     **geometry(mesh), cases=sum(rows.values()),
+                     shards=[dict(kernel=k, shape=list(sh), W=w, handles=c)
+                             for (k, sh, w), c in sorted(rows.items())])
 
     def serve(g, seeds, mesh):
         """1024 seeded k-hop queries through one server after a warm-up
@@ -2927,6 +2979,7 @@ def mesh_cells(torch, h):
             t0 = time.perf_counter()
             mesh = card_mesh(shape)
             r = serve(g, seeds, mesh)
+            shard_cases(f"serve_{tag} {shape}", mesh)
             check(np.array_equal(r["counts"], base["counts"]),
                   f"mesh_serve_{tag} {shape}: rows differ from unsharded")
             for i in pick:
@@ -3049,6 +3102,7 @@ def mesh_cells(torch, h):
     check(torch.equal(dist, algo.sssp(Aw, sssp_seeds)),
           "mesh_algo sssp differs")
     res["sssp"] = dt
+    shard_cases("algo", mesh)
     h.emit_phase(phase="mesh_algo", card=card, **geometry(mesh), n=g.n,
                  nnz=A.nvals, sources=MESH_ALGO_SOURCES,
                  sssp_sources=MESH_SSSP_SOURCES, seconds=res,
@@ -3064,11 +3118,12 @@ def mesh_cells(torch, h):
                                    < 1e-3, rng.integers(1, 3, (
                                        g.n, MESH_TRANSPOSED_F)), 0)
                           .astype(np.float32)).to(DEVICE)
-    cases = {}
+    cases, used = {}, set()
     for data, srs in ((MESH_SHAPES[0][1], (S.OR_AND, S.PLUS_TIMES,
                                            S.MIN_PLUS)),
                       (MESH_WIDE_DATA, (S.OR_AND,))):
         m_ = card_mesh((1, data, 1))
+        used.update(str(d) for d in m_.devices.reshape(-1))
         linked = grb.distribute(A, m_)
         un = grb.distribute(grb.GBMatrix(A.store), m_)
         check(un._T is None, "mesh_transposed: the handle has a twin")
@@ -3089,7 +3144,8 @@ def mesh_cells(torch, h):
                                                    seconds=dt, equal=True)
         del linked, un
     h.emit_phase(phase="mesh_transposed", card=card, n=g.n, cases=cases,
-                 distinct_devices=1, elapsed_s=time.perf_counter() - t0)
+                 distinct_devices=len(used),
+                 elapsed_s=time.perf_counter() - t0)
 
     # -- mesh_kernels: kernel 1 at a position's local shapes -----------------
     local_case(sh, "ell_mxv_packed", "s16 ELL")
@@ -3135,6 +3191,7 @@ def mesh_cells(torch, h):
                                          for q in qs])
     check(got == want, "mesh_database: rows differ from the unsharded "
           "delta-served query")
+    shard_cases("database", mesh)
     ctx = db.context("g", mesh=mesh)
     M_ = ctx.matrix("KNOWS")
     check(M_.fmt == "sharded" and isinstance(
@@ -3155,7 +3212,8 @@ def mesh_cells(torch, h):
                "bitadj_mxv_packed", "s18 BitELL")
     del g, A
     h.release()
-    h.emit_phase(phase="mesh_total", card=card, distinct_devices=1,
+    h.emit_phase(phase="mesh_total", card=card,
+                 distinct_devices=len(devices),
                  launches=dict(words),
                  elapsed_s=time.perf_counter() - t_all)
     return words, shapes

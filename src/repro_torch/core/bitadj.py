@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmap, xfer
+from repro_torch.core import shard as _shard
 from repro_torch.core.ell import ELL
 
 TILE = bitmap.WORD_BITS     # 32-row panels x 32-column tiles, one word/row
@@ -381,7 +382,7 @@ def triangle_count(s: BitELL, slot_chunk: int = 4) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # ShardedBitELL — the mesh twin behind grb.distribute
 # ---------------------------------------------------------------------------
-class ShardedBitELL:
+class ShardedBitELL(_shard.OnMesh):
     """BitELL panels sharded over the mesh's "data" axis (see module doc).
 
     ``local`` holds one shard-local BitELL per position (``p_pad / data``
@@ -394,7 +395,6 @@ class ShardedBitELL:
     __slots__ = ("shape", "mesh", "local", "nnz", "p_pad", "_ell2d")
 
     def __init__(self, shape, mesh, local, nnz):
-        from repro_torch.core import shard as _shard
         self.shape = tuple(shape)
         self.mesh = _shard._check_mesh(mesh)
         self.local = local
@@ -409,7 +409,6 @@ class ShardedBitELL:
         forms are built here, once. Blocks on the BitELL's own device are
         views of it when no padding is needed."""
         from repro_torch.core import semiring as S
-        from repro_torch.core import shard as _shard
         _shard._check_mesh(mesh)
         dsz = mesh.shape[_shard.ROW_AXIS]
         Pn = b.tiles.shape[0]
@@ -430,18 +429,7 @@ class ShardedBitELL:
             sh.slot_plan()                  # with occupied_first, cached
         return cls(b.shape, mesh, local, nnz=b.nnz)
 
-    # -- mesh geometry -------------------------------------------------------
-    @property
-    def data_size(self) -> int:
-        from repro_torch.core import shard as _shard
-        return self.mesh.shape[_shard.ROW_AXIS]
-
-    @property
-    def frontier_size(self) -> int:
-        from repro_torch.core import shard as _shard
-        return int(np.prod([self.mesh.shape[a]
-                            for a in _shard.frontier_axes(self.mesh)] or [1]))
-
+    # -- mesh geometry (data_size, frontier_size, device: shard.OnMesh) -----
     @property
     def n_ctiles(self) -> int:
         return -(-self.shape[1] // TILE)
@@ -453,15 +441,6 @@ class ShardedBitELL:
     @property
     def payload_bytes(self) -> int:
         return self.p_pad * self.n_slots * (TILE + 1) * 4
-
-    @property
-    def device(self) -> torch.device:
-        return self.mesh.home
-
-    def _global(self, attr: str) -> torch.Tensor:
-        from repro_torch.distr import mesh as M
-        return M.unshard(self.mesh, [getattr(s, attr) for s in self.local],
-                         ("data",))
 
     @property
     def tiles(self) -> torch.Tensor:
@@ -497,9 +476,9 @@ class ShardedBitELL:
         """Cached ShardedELL on the same mesh: the sharded fallback target
         for weighted semirings, ewise and assign / extract (one counted
         gather to rebuild neighbour lists, then on the mesh again)."""
-        from repro_torch.core.shard import ShardedELL
         if self._ell2d is None:
-            self._ell2d = ShardedELL.from_ell(self.to_ell(), self.mesh)
+            self._ell2d = _shard.ShardedELL.from_ell(self.to_ell(),
+                                                     self.mesh)
         return self._ell2d
 
     def __repr__(self) -> str:
@@ -515,10 +494,9 @@ def sharded_mxm_words(s: ShardedBitELL, Xw: torch.Tensor) -> torch.Tensor:
     all-gather of Xw over "data" per call, then the word product on each
     panel block (the ``bitadj_mxv_packed`` kernel on a CUDA shard). Words
     in, words out: what grb.mxm_words dispatches to."""
-    from repro_torch.core.shard import _pad_words
     from repro_torch.distr import graph2d
     n, k = s.shape
-    Xp = _pad_words(s, Xw, k)
+    Xp = _shard._pad_words(s, Xw, k)
     fn = graph2d.bit_mxm_2d(s.mesh, s.n_slots, k)
     Y = fn(s.local, Xp)
     return Y[:n, :Xw.shape[1]]
@@ -530,10 +508,9 @@ def sharded_reduce_stored(s: ShardedBitELL, monoid, axis,
     its panels (``reduce_stored``, float64), per-row counts are
     concatenated, full and per-column counts psum over "data"."""
     from repro_torch.core import semiring as S
-    from repro_torch.core.shard import local_map
     from repro_torch.distr import mesh as M
-    parts = local_map(lambda b: reduce_stored(b, S.PLUS, axis,
-                                              torch.float64), s.local)
+    parts = _shard.local_map(
+        lambda b: reduce_stored(b, S.PLUS, axis, torch.float64), s.local)
     if axis == 1:
         out = M.unshard(s.mesh, parts, ("data",))[:s.shape[0]]
     else:

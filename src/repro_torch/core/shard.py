@@ -104,7 +104,31 @@ def row_blocks(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
     return M.shard(mesh, x, (ROW_AXIS,))
 
 
-class ShardedELL:
+class OnMesh:
+    """The mesh geometry the sharded stores share: ``mesh`` and ``local``
+    (one shard-local handle per position, row blocks over "data")."""
+    __slots__ = ()
+
+    @property
+    def data_size(self) -> int:
+        return self.mesh.shape[ROW_AXIS]
+
+    @property
+    def frontier_size(self) -> int:
+        """Number of shards the frontier's F dimension splits into."""
+        return int(np.prod([self.mesh.shape[a]
+                            for a in frontier_axes(self.mesh)] or [1]))
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.home
+
+    def _global(self, attr: str) -> torch.Tensor:
+        return M.unshard(self.mesh, [getattr(s, attr) for s in self.local],
+                         (ROW_AXIS,))
+
+
+class ShardedELL(OnMesh):
     """Row-sharded ELL storage over a mesh (see module doc).
 
     ``local`` holds one shard-local ELL per position (rows ``n_pad /
@@ -160,24 +184,6 @@ class ShardedELL:
     @property
     def max_deg(self) -> int:
         return self.local[0].max_deg
-
-    @property
-    def data_size(self) -> int:
-        return self.mesh.shape[ROW_AXIS]
-
-    @property
-    def frontier_size(self) -> int:
-        """Number of shards the frontier's F dimension splits into."""
-        return int(np.prod([self.mesh.shape[a]
-                            for a in frontier_axes(self.mesh)] or [1]))
-
-    @property
-    def device(self) -> torch.device:
-        return self.mesh.home
-
-    def _global(self, attr: str) -> torch.Tensor:
-        return M.unshard(self.mesh, [getattr(s, attr) for s in self.local],
-                         (ROW_AXIS, None))
 
     @property
     def indices(self) -> torch.Tensor:
@@ -287,40 +293,37 @@ def _pad_frontier(s: ShardedELL, X: torch.Tensor, x_rows: int):
     return _pad2(X, (-x_rows) % s.data_size, (-X.shape[1]) % s.frontier_size)
 
 
-def _pad_frontier_packed(s: ShardedELL, X: torch.Tensor, x_rows: int):
-    """Pack an (x_rows, F) frontier into words and pad both axes to the
-    mesh: rows to the "data" axis, words to the frontier shard count."""
-    return _pad_words(s, bitmap.pack(X.to(s.mesh.home)), x_rows)
-
-
 def mxm(s: ShardedELL, X: torch.Tensor, sr, transposed: bool = False,
         packed: bool = False):
     """Y = A (x) X (or A^T (x) X) on the mesh. X: dense (k, F) global
     frontier (k = A's columns in row form, A's rows in transposed form);
     the result is the global (rows, F) tensor on the mesh's first device.
 
-    packed=True (or_and only, set by grb's packing policy): X crosses the
-    mesh as words, 32x fewer bytes in the row form's all-gather; the
+    packed=True (or_and only, set by grb's packing policy): X is packed
+    and runs through :func:`mxm_words`, crossing the mesh as words, 32x
+    fewer bytes in the row form's all-gather; the
     transposed form psum_scatters summable nibble words (8x) up to
     bitmap.NIBBLE_MAX_SHARDS row shards, past which graph2d.mxm_2d builds
     the unpacked psum_scatter body (same word signature)."""
     from repro_torch.distr import graph2d            # lazy: distr reads core
+    if packed:
+        if sr.mode != "dot_indicator":
+            raise NotImplementedError(
+                f"packed mxm_2d is or_and/any_pair only (mode "
+                f"dot_indicator); got {sr.mode}")
+        return bitmap.unpack(mxm_words(s, bitmap.pack(X.to(s.mesh.home)),
+                                       transposed), X.shape[1])
     n, m = s.shape
-    dsz = s.data_size
     if transposed:
         fn = graph2d.mxm_2d(s.mesh, sr, transposed=True,
-                            out_rows=_padded(m, dsz), packed=packed)
-        Xp = (_pad_frontier_packed(s, X, n) if packed
-              else _pad_frontier(s, X, n))          # x rides A's row shards
+                            out_rows=_padded(m, s.data_size))
+        Xp = _pad_frontier(s, X, n)                 # x rides A's row shards
         out_rows = m
     else:
-        fn = graph2d.mxm_2d(s.mesh, sr, packed=packed)
-        Xp = (_pad_frontier_packed(s, X, m) if packed
-              else _pad_frontier(s, X, m))          # x rows are A's columns
+        fn = graph2d.mxm_2d(s.mesh, sr)
+        Xp = _pad_frontier(s, X, m)                 # x rows are A's columns
         out_rows = n
     Y = fn(s.local, Xp)
-    if packed:
-        return bitmap.unpack(Y[:out_rows], X.shape[1])
     return Y[:out_rows, :X.shape[1]]
 
 
