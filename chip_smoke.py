@@ -48,6 +48,12 @@ Phases, each printing one JSON line:
             ``repro_torch.query.reference`` (walk counts: against
             ``scipy.sparse`` products of the generator's edges)
   breakdown_*  where one 512-column batch's time goes
+  any_pair  after each of the s16 ELL, s18 BitELL and s16 BSR cells, on
+            the served handle: ``grb.mxm(A, X, ANY_PAIR)`` at F = 512
+            launches or_and's kernel once (``ell_mxv_packed``,
+            ``bitadj_mxv_packed``, the ``bsr_mxm`` entry kernel) and equals
+            or_and bit for bit; on ELL also under
+            ``packed_frontiers("off")``, with no word launch
   graph_analytics, triangles, ktruss, similarity
             the analytics cell: its graph, then each call with the launch
             counts zeroed just before and read just after, held against
@@ -70,6 +76,26 @@ Phases, each printing one JSON line:
             and (``mesh_shards``) at every shard-local handle and word
             width that the served, algorithm and database phases ran,
             bit for bit against its plain version
+  probe_graph500*  the paper's ``graph500_s21`` config (``probe_cells``)
+            at its published widths: R-MAT scale 21, edge factor 16, each
+            vertex's in-neighbours deduplicated and cut to the first 64 by
+            source id (the config's (N, 64) ELL; the shares of edges and
+            rows the cut drops are printed), 256 seeded queries, k = 2;
+            ``distr.graph2d.khop_counts_2d`` in its int8, bitmap and
+            bitmap + sentinel forms on a ("data", "model") = (4, 2) mesh of
+            the card's positions and the bitmap form on (2, 2, 2), every
+            count equal to a ``scipy.sparse`` oracle, ``ell_mxv_packed``
+            launched once per position per hop, each probe shard handle
+            bit for bit against its plain version (position 0 timed), a
+            hop's gather, local and whole times, and the all-gather bytes
+            of words against int8; ``pagerank_2d`` (10 iterations, float32
+            push within L1 1e-5 of a float64 scipy power iteration, the
+            bfloat16 push's L1 printed)
+  dryrun_graph  ``python -m repro_torch.launch.dryrun --graph --mesh
+            both`` into ``experiments/dryrun_graph``: one line per cell (16
+            layout cells), and the layout accounting of the (4, 2) mesh
+            equal to the bytes the probes held (arguments, gathered
+            frontiers and push vectors)
   write_*   the write path (``write_path_cells``): two ``Database`` graphs
             loaded from R-MAT s16 through ``MutableGraph.create_edge``
             (ELL by ``fmt="auto"``, and BSR with 64-tiles), three rounds
@@ -91,7 +117,9 @@ Phases, each printing one JSON line:
 
 then the kernels line (the word kernels' rows with their launches under
 the mesh, ``mesh_launches``, and their rows at a position's local shapes
-and at every shard shape the mesh path ran, ``mesh_shapes``), the
+and at every shard shape the mesh path ran, ``mesh_shapes``; kernel 1's
+launches and shapes under the probes, ``probe_launches`` /
+``probe_shapes``; the any_pair launches of rows 1-3), the
 nvidia-smi line, and the result line. Any
 failed check raises and the script exits non-zero without a result line;
 so does a host with no CUDA device. Tolerances: every kernel comparison
@@ -177,6 +205,12 @@ MESH_SSSP_SOURCES = 16
 MESH_WIDE_DATA = 16
 MESH_TRANSPOSED_F = 64
 MESH_WRITES = 1024
+# the paper's workload (configs.graph500, graph500_s21): R-MAT at the
+# config's scale with the Graph500 edge factor and seed, PageRank for the
+# JAX dry-run's iteration count
+PROBE_EDGE_FACTOR = 16
+PROBE_SEED = 0
+PROBE_PR_ITERS = 10
 # the fill sweeps: an n x n matrix at each tile side and fill, frontiers
 # of SWEEP_F columns; the planted-partition graph's communities and degrees
 SWEEP_N = 8192
@@ -1131,6 +1165,50 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def any_pair_case(g, tag, kernel):
+        """``grb.mxm(A, X, ANY_PAIR)`` on a served graph's handle at F =
+        512 (a 1% frontier), with the launch counts at 0 just before and
+        read just after: one launch of or_and's kernel, and or_and's bits.
+        On ELL also under ``packed_frontiers("off")``: no word kernel,
+        the same bits."""
+        A = g.relations["KNOWS"].A
+        rs = np.random.default_rng(21)
+        X = torch.from_numpy((rs.random((g.n, MAX_WIDTH)) < 0.01)
+                             .astype(np.float32)).to(DEVICE)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = grb.mxm(A, X, S.ANY_PAIR)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = {**launches_now(), **variant_launches()}
+        check(launched[kernel] == 1 and sum(launches_now().values()) == 1,
+              f"any_pair {tag}: launches {launched}, not one of {kernel}")
+        check(torch.equal(got, grb.mxm(A, X, S.OR_AND)),
+              f"any_pair {tag}: differs from or_and")
+        row = dict(phase="any_pair", card=card, tag=tag, fmt=A.fmt, n=g.n,
+                   F=MAX_WIDTH, seconds=dt, launches={kernel: 1},
+                   variants={k_: v for k_, v in launched.items()
+                             if k_.startswith(kernel + "_") and v},
+                   equal_or_and=True)
+        if A.fmt == "ell":
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with grb.packed_frontiers("off"):
+                off = grb.mxm(A, X, S.ANY_PAIR)
+            torch.cuda.synchronize()
+            row["off_seconds"] = time.perf_counter() - t0
+            row["off_launches"] = sum(launches_now().values())
+            check(row["off_launches"] == 0 and torch.equal(off, got),
+                  f"any_pair {tag} packing off: {row['off_launches']} "
+                  f"launches, equal {torch.equal(off, got)}")
+            row["off_equal"] = True
+            del off
+        emit_phase(**row)
+        del X, got
+        return launched[kernel]
+
     t12 = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(DISTINCT b)"
     w12 = "MATCH (a)-[:KNOWS*1..2]->(b) RETURN count(b)"
 
@@ -1154,6 +1232,8 @@ def main() -> int:
         g, [(t12, int(s)) for s in seeds], {"ell_mxv_packed": "hops"}, "ell",
         bfs_want(g))["ell_mxv_packed"]
     breakdown(g, t12, seeds, "ell")
+    any_pair = {"ell_mxv_packed": any_pair_case(g, "s16 ELL",
+                                                "ell_mxv_packed")}
     del g, A
     release()
 
@@ -1181,6 +1261,8 @@ def main() -> int:
         g, texts, {"bitadj_mxv_packed": "hops"}, "bitadj",
         bfs_want(g))["bitadj_mxv_packed"]
     breakdown(g, t12, seeds[::2], "bitadj")
+    any_pair["bitadj_mxv_packed"] = any_pair_case(g, "s18 BitELL",
+                                                  "bitadj_mxv_packed")
     del g, A
     release()
 
@@ -1241,6 +1323,7 @@ def main() -> int:
     for k in path:
         path[k] += launched[k]
     breakdown(g, t12, seeds[::2], "bsr")
+    any_pair["bsr_mxm_entry"] = any_pair_case(g, "s16 BSR", "bsr_mxm")
     del g, A, AT, ctx, bfs, want
     release()
 
@@ -1565,6 +1648,9 @@ def main() -> int:
     for k, v in mesh_words.items():
         kern[k]["launches"] += v
 
+    # -- the paper's workload: graph500_s21 probes and the graph dry-run -----
+    probe_words, probe_shapes = probe_cells(torch, h)
+
     # -- the kernels line, the card, the result --------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     rows_by = {
@@ -1647,6 +1733,14 @@ def main() -> int:
         entry["mesh_shapes"] = mesh_shapes[entry["name"]]
         check(entry["mesh_launches"] > 0,
               f"{entry['name']} never launched under the mesh")
+    # the probes: kernel 1's launches and its shard shapes there
+    line[0]["probe_launches"] = probe_words
+    line[0]["probe_shapes"] = probe_shapes
+    check(probe_words > 0, "ell_mxv_packed never launched by the probes")
+    # any_pair on the served handles: or_and's kernel on each
+    for entry in line:
+        if entry["name"] in any_pair:
+            entry["any_pair_launches"] = any_pair[entry["name"]]
     line[2]["write_shapes"] = {
         name: {k: r_[k] for k in entry_keys + ("masked", "block")}
         for name, r_ in write_shapes["bsr_mxm"].items()}
@@ -3217,6 +3311,315 @@ def mesh_cells(torch, h):
                  launches=dict(words),
                  elapsed_s=time.perf_counter() - t_all)
     return words, shapes
+
+
+def probe_cells(torch, h):
+    """The paper's own workload on the card: the ``graph500_s21`` config
+    (``configs.graph500``) at its published widths through the
+    ``distr.graph2d`` probes (``probe_graph500``), then the graph dry-run
+    (``dryrun_graph``). Each probe call is driven once with the launch
+    counts at 0 and read just after, and held against ``scipy.sparse``
+    oracles on the same edges; the tensors each call shards and gathers
+    are recorded and held against the dry-run's layout accounting of the
+    same mesh. Returns kernel 1's launches under the probes and its rows
+    at the probes' shard shapes (position 0 timed, every shard-local
+    handle checked bit for bit)."""
+    import scipy.sparse as sp
+    from repro_torch.configs.graph500 import GRAPH_CONFIG
+    from repro_torch.core import bitmap
+    from repro_torch.core.shard import local_map
+    from repro_torch.distr import graph2d
+    from repro_torch.distr import mesh as M
+    from repro_torch.distr.mesh import Mesh
+    from repro_torch.graph.datagen import rmat_edges
+    from repro_torch.launch import dryrun
+
+    card = h.card
+    cfg = GRAPH_CONFIG
+    n, deg, F, k = (cfg[a] for a in ("n_vertices", "max_deg", "queries",
+                                     "k"))
+    scale = n.bit_length() - 1
+    t_all = time.perf_counter()
+
+    # -- the data: R-MAT in-neighbours, each row's first deg by source id ---
+    t0 = time.perf_counter()
+    src, dst, _ = rmat_edges(scale, PROBE_EDGE_FACTOR, PROBE_SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generated = len(src)
+    # rows by dst, then src, duplicates dropped: a sort, since np.unique
+    # of these 33.5 M keys took 103.5 s on the card's host (numpy 2.3.5;
+    # the sort 0.57 s)
+    key = np.sort(dst * n + src)
+    key = key[np.concatenate([[True], key[1:] != key[:-1]])]
+    del src, dst
+    d, s_ = key // n, key % n
+    in_deg = np.bincount(d, minlength=n)
+    starts = np.zeros(n + 1, dtype=np.int64)
+    starts[1:] = np.cumsum(in_deg)
+    pos = np.arange(len(key)) - starts[d]         # slot within the row
+    keep = pos < deg
+    slot = pos[keep]
+    d, s_ = d[keep], s_[keep]
+    idx = np.zeros((n, deg), dtype=np.int32)
+    msk = np.zeros((n, deg), dtype=bool)
+    idx[d, slot] = s_
+    msk[d, slot] = True
+    out_deg = np.bincount(s_, minlength=n)
+    seeds = np.random.default_rng(PROBE_SEED).choice(
+        np.nonzero(out_deg >= 1)[0], F, replace=False)
+    layout_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_d = torch.from_numpy(idx).to(DEVICE)
+    msk_d = torch.from_numpy(msk).to(DEVICE)
+    idx_s = torch.where(msk_d, idx_d, n)
+    fr_d = torch.zeros((n, F), dtype=torch.int8, device=DEVICE)
+    fr_d[torch.from_numpy(seeds).to(DEVICE),
+         torch.arange(F, device=DEVICE)] = 1
+    deg_d = torch.from_numpy(out_deg.astype(np.float32)).to(DEVICE)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del idx, msk, slot, pos
+
+    # -- the oracles: k hops of scipy products, float64 PageRank ------------
+    t0 = time.perf_counter()
+    A = sp.csr_matrix((np.ones(len(d), np.float64), (d, s_)), shape=(n, n))
+    front = sp.csc_matrix((np.ones(F), (seeds, np.arange(F))), shape=(n, F))
+    seen = front.copy()
+    for _ in range(k):
+        reach = A @ front
+        reach.data[:] = 1
+        front = reach - reach.multiply(seen)
+        front.eliminate_zeros()
+        seen = seen + front
+    want = np.asarray(seen.sum(axis=0)).ravel().astype(np.int64) - 1
+    rank = np.full(n, 1.0 / n)
+    inv = np.where(out_deg > 0, 1.0 / np.maximum(out_deg, 1), 0.0)
+    for _ in range(PROBE_PR_ITERS):
+        rank = (1.0 - 0.85) / n + 0.85 * (A @ (rank * inv)
+                                          + rank[out_deg == 0].sum() / n)
+    oracle_s = time.perf_counter() - t0
+    h.emit_phase(phase="probe_graph500_data", card=card, config=cfg["name"],
+                 scale=scale, n=n, max_deg=deg, queries=F, k=k,
+                 edge_factor=PROBE_EDGE_FACTOR, edges_generated=generated,
+                 edges_distinct=len(key), edges_kept=int(keep.sum()),
+                 dropped_edge_share=1.0 - float(keep.mean()),
+                 truncated_row_share=float((in_deg > deg).mean()),
+                 rows_without_in_edges=float((in_deg == 0).mean()),
+                 count_mean=float(want.mean()), count_max=int(want.max()),
+                 generate_s=gen_s, layout_s=layout_s, upload_s=upload_s,
+                 oracle_s=oracle_s)
+    del key, keep, d, s_, A, front, seen, reach
+
+    def card_mesh(shape, names):
+        return Mesh(np.array([torch.device(DEVICE)] * int(np.prod(shape)),
+                             dtype=object).reshape(shape), names)
+
+    ran = {}            # (id(shard-local handle), W) -> (handle, W)
+    held = {"shard": [], "gather": []}
+
+    def counted(fn):
+        """(fn(), seconds, kernel 1's launches, the position-0 bytes of
+        every block the call sharded and gathered) with the launch counts
+        at 0 just before; each (shard-local handle, word width) the call
+        hands the word product is kept in ``ran``."""
+        real = (M.shard, M.all_gather, graph2d._words)
+
+        def shard(mesh, x, spec):
+            out = real[0](mesh, x, spec)
+            held["shard"].append(out[0].nbytes)
+            return out
+
+        def gather(mesh, xs, axis):
+            out = real[1](mesh, xs, axis)
+            held["gather"].append(out[0].nbytes)
+            return out
+
+        def words(local, xg):
+            ran.setdefault((id(local), xg.shape[1]), (local, xg.shape[1]))
+            return real[2](local, xg)
+
+        held["shard"], held["gather"] = [], []
+        h.zero_launches()
+        torch.cuda.synchronize()
+        M.shard, M.all_gather, graph2d._words = shard, gather, words
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            M.shard, M.all_gather, graph2d._words = real
+        return out, dt, h.launches_now()["ell_mxv_packed"], dict(held)
+
+    words_total, shapes, layout = 0, {"shards": []}, []
+    mesh42 = card_mesh((4, 2), ("data", "model"))
+    runs = [("khop", mesh42, False, False),
+            ("khop_bitmap", mesh42, True, False),
+            ("khop_bitmap_sentinel", mesh42, True, True),
+            ("khop_bitmap", card_mesh((2, 2, 2), ("pod", "data", "model")),
+             True, False)]
+    for kind, mesh, packed, sentinel in runs:
+        t0 = time.perf_counter()
+        tag = f"{kind} {tuple(mesh.shape.values())}"
+        args = (idx_s if sentinel else idx_d, msk_d, fr_d)
+
+        def probe(hops):
+            return graph2d.khop_counts_2d(mesh, n, hops, packed=packed,
+                                          sentinel=sentinel)(*args)
+
+        got, dt, launched, seen_ = counted(lambda: probe(k))
+        need = mesh.size * k if packed else 0
+        check(launched == need, f"probe {tag}: ell_mxv_packed launched "
+              f"{launched} times, not {need}")
+        words_total += launched
+        got = got.cpu().numpy()
+        check(got.shape == (F,) and np.array_equal(got, want),
+              f"probe {tag}: {int((got != want).sum())} of {F} counts "
+              f"differ from the scipy oracle")
+        if mesh is mesh42 and not sentinel:
+            layout.append((kind, dryrun.khop_layout(
+                mesh, n, deg, F, k, packed=packed), seen_))
+        # one hop's parts on the call's own layout: the frontier's
+        # all-gather, the local pull at position 0, and the whole hop
+        # (gather, every position's pull, and-not visited, or)
+        call_ms = wall_ms(torch, lambda: probe(k))
+        spec = graph2d.shardings_2d(mesh, n, deg, F)
+        rows_l = M.shard(mesh, args[0], spec[0])
+        msk_l = M.shard(mesh, msk_d, spec[1])
+        seeds_l = M.shard(mesh, fr_d, spec[2])
+        fr_l = [bitmap.pack(x) for x in seeds_l] if packed else seeds_l
+        f_l = seeds_l[0].shape[1]
+        if packed:
+            local = local_map(
+                lambda i, m: graph2d._probe_ell(i, m, n, sentinel),
+                rows_l, msk_l)
+
+            def pull(x_full):
+                if sentinel:
+                    x_full = local_map(graph2d._zero_row, x_full)
+                return [bitmap.word_andnot(graph2d._words(e, x), v)
+                        for e, x, v in zip(local, x_full, fr_l)]
+        else:
+            def pull(x_full):
+                return [graph2d._gather_max(i, m, x).masked_fill_(v > 0, 0)
+                        for i, m, x, v in zip(rows_l, msk_l, x_full, fr_l)]
+
+        def hop():
+            nxt = pull(M.all_gather(mesh, fr_l, "data"))
+            return [(bitmap.word_or if packed else torch.maximum)(v, y)
+                    for v, y in zip(fr_l, nxt)]
+
+        xg = M.all_gather(mesh, fr_l, "data")
+        gather_ms = time_ms(torch, lambda: M.all_gather(mesh, fr_l, "data"))
+        hop_ms = time_ms(torch, hop, reps=10 if packed else 3, warmup=1)
+        rec = dict(tag=tag, kind=kind, F_l=f_l, call_ms=call_ms,
+                   hop_ms=hop_ms, gather_ms=gather_ms,
+                   allgather_bytes_per_position=seen_["gather"][0],
+                   int8_bytes_per_position=n * f_l,
+                   float32_bytes_per_position=n * f_l * 4)
+        if packed:
+            cases = list(ran.values())
+            ran.clear()
+            local0, w = cases[0]              # position 0's handle
+            row = h.ell_case(local0, w, f"probe {tag} position 0 local "
+                             f"{tuple(local0.shape)}", timed=True,
+                             earlier=False)
+            for local_, w_ in cases[1:]:
+                h.ell_case(local_, w_, f"probe {tag} shard "
+                           f"{tuple(local_.shape)}", timed=False)
+            for local_, w_ in cases:
+                shapes["shards"].append(dict(tag=tag, shape=list(
+                    local_.shape), W=w_, nnz=local_.nnz, equal=True))
+            check(len(cases) == mesh.shape["data"],
+                  f"probe {tag}: {len(cases)} shard handles ran, not one "
+                  f"per row block ({mesh.shape['data']})")
+            shapes[tag] = {key_: row[key_] for key_ in (
+                "shape", "W", "equal", "max_abs_err", "kernel_ms",
+                "loop_ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                "items", "split_rows", "longest_row")}
+            rec.update(local_ms=row["kernel_ms"],
+                       bytes_vs_int8=n * f_l / seen_["gather"][0],
+                       bytes_vs_float32=4 * n * f_l / seen_["gather"][0])
+            del local, cases, local0
+        else:
+            rec["local_ms"] = time_ms(torch, lambda: graph2d._gather_max(
+                rows_l[0], msk_l[0], xg[0]), reps=3, warmup=1)
+        del xg, fr_l, seeds_l, rows_l, msk_l
+        h.emit_phase(phase="probe_graph500", card=card,
+                     mesh=dict(mesh.shape), positions=mesh.size,
+                     distinct_devices=mesh.distinct_devices, n=n,
+                     max_deg=deg, queries=F, k=k, seconds=dt,
+                     launches={"ell_mxv_packed": launched},
+                     launches_needed=need, counts_equal_oracle=True, **rec,
+                     elapsed_s=time.perf_counter() - t0)
+
+    # -- PageRank, float32 and bfloat16 push, on (4, 2) --------------------
+    for name, pd in (("float32", None), ("bfloat16", torch.bfloat16)):
+        t0 = time.perf_counter()
+        fn = graph2d.pagerank_2d(mesh42, n, PROBE_PR_ITERS, push_dtype=pd)
+        ranks, dt, launched, seen_ = counted(
+            lambda: fn(idx_d, msk_d, deg_d))
+        got = ranks.cpu().numpy().astype(np.float64)
+        check(got.shape == (n,) and np.isfinite(got).all(),
+              f"probe pagerank {name}: shape {got.shape} or non-finite")
+        l1 = float(np.abs(got - rank).sum())
+        if pd is None:
+            check(l1 <= 1e-5, f"probe pagerank float32: L1 {l1} > 1e-5 "
+                  f"against the float64 oracle")
+        layout.append((f"pagerank {name}", dryrun.pagerank_layout(
+            mesh42, n, deg, PROBE_PR_ITERS, push_dtype=pd), seen_))
+        h.emit_phase(phase="probe_graph500_pagerank", card=card,
+                     mesh=dict(mesh42.shape), positions=mesh42.size,
+                     distinct_devices=mesh42.distinct_devices, push=name,
+                     iters=PROBE_PR_ITERS, seconds=dt, l1=l1,
+                     allgather_bytes_per_position=seen_["gather"][0],
+                     call_ms=wall_ms(torch, lambda: fn(idx_d, msk_d, deg_d)),
+                     elapsed_s=time.perf_counter() - t0)
+    del idx_d, msk_d, idx_s, fr_d, deg_d, ranks
+    h.release()
+
+    # -- dryrun_graph: the 16 layout cells, and the one-card accounting ----
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "experiments", "dryrun_graph")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--graph", "--mesh", "both", "--out", out_dir],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    check(r.returncode == 0, f"dryrun_graph: exit {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    cells = sorted(f for f in os.listdir(out_dir) if f.endswith(".json"))
+    check(len(cells) == 16, f"dryrun_graph: {len(cells)} cells, not 16")
+    for name in cells:
+        with open(os.path.join(out_dir, name)) as f:
+            c = json.load(f)
+        check(c["status"] == "ok" and c["layout_only"],
+              f"dryrun_graph: {name} not ok")
+        h.emit_phase(phase="dryrun_graph", card=card, cell=c["cell"],
+                     positions=c["positions"],
+                     argument_bytes_per_position=c[
+                         "argument_bytes_per_position"],
+                     output_bytes_per_position=c["output_bytes_per_position"],
+                     gathered_bytes_per_position=c[
+                         "gathered_bytes_per_position"],
+                     collectives=c["collectives"], fits_hbm=c["fits_hbm"],
+                     hbm=c["card"], layout_only=True)
+    for kind, rec, seen_ in layout:
+        check(sum(seen_["shard"]) == rec["argument_bytes_per_position"]
+              and set(seen_["gather"]) == {rec["gathered_bytes_per_position"]}
+              and len(seen_["gather"]) == rec["collectives"]["all-gather"][
+                  "count"],
+              f"dryrun_graph: the (4, 2) accounting of {kind} "
+              f"(arguments {rec['argument_bytes_per_position']}, gathered "
+              f"{rec['gathered_bytes_per_position']}) differs from the "
+              f"tensors the probe held ({sum(seen_['shard'])}, "
+              f"{sorted(set(seen_['gather']))})")
+    h.emit_phase(phase="dryrun_graph_total", card=card, cells=len(cells),
+                 one_card_checked=[kind for kind, _, _ in layout],
+                 one_card_equal=True, elapsed_s=time.perf_counter() - t0,
+                 probe_elapsed_s=time.perf_counter() - t_all)
+    return words_total, shapes
 
 
 if __name__ == "__main__":

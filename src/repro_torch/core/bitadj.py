@@ -151,6 +151,12 @@ class BitELL:
     def device(self) -> torch.device:
         return self.tiles.device
 
+    @property
+    def payload_bytes(self) -> int:
+        """Adjacency payload (tiles + slot index), as the JAX package
+        accounts it."""
+        return self.tiles.numel() * 4 + self.cols.numel() * 4
+
     @staticmethod
     def from_coo(rows, cols, vals, shape, pad_slots_to: int = 1,
                  device="cuda") -> "BitELL":
@@ -191,6 +197,24 @@ class BitELL:
                       tiles=torch.from_numpy(
                           tiles.view(np.int32).reshape(P, S, TILE)).to(dev),
                       cols=torch.from_numpy(colsA).to(dev), nnz=nnz)
+
+    @staticmethod
+    def from_ell(e: ELL) -> "BitELL":
+        """Structural view of an ELL's stored pattern (values dropped), on
+        the ELL's device."""
+        r, c, _ = e.to_coo()
+        return BitELL.from_coo(r, c, None, e.shape, device=e.device)
+
+    @staticmethod
+    def from_dense(A, device=None) -> "BitELL":
+        """The nonzero pattern of a dense matrix (tensor or numpy); on the
+        tensor's device unless ``device`` is given (numpy input defaults to
+        ``"cuda"``)."""
+        if device is None:
+            device = A.device if isinstance(A, torch.Tensor) else "cuda"
+        A = A.cpu().numpy() if isinstance(A, torch.Tensor) else np.asarray(A)
+        r, c = np.nonzero(A)
+        return BitELL.from_coo(r, c, None, A.shape, device=device)
 
     def occupied_first(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(tiles, cols) with each panel's occupied slots before its
@@ -243,6 +267,9 @@ class BitELL:
             r, c, v = self.to_coo()
             self._ell = ELL.from_coo(r, c, v, self.shape, device=self.device)
         return self._ell
+
+    def to_dense(self) -> torch.Tensor:
+        return self.to_ell().to_dense()
 
     def transpose(self) -> "BitELL":
         r, c, _ = self.to_coo()

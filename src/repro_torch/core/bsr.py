@@ -54,13 +54,28 @@ _FORM_ENTRIES = 1 << 26
 BANDS = 32            # row bands per tile in EntryForm.bands
 
 _tile_builds = [0]
+_densify_calls = [0]
+_host_numeric = [0]
 
 
 def tile_builds() -> int:
     """Tiles materialised from entries so far: each first ``.blocks`` read
-    of a handle that an entry-level op produced. The counterpart of the JAX
-    package's ``densify_calls()``; tests read deltas."""
+    of a handle that an entry-level op produced. Tests read deltas."""
     return _tile_builds[0]
+
+
+def densify_calls() -> int:
+    """``BSR.to_dense()`` materializations so far (monotonic), counted
+    where the JAX package counts them: the sparse algorithm paths (SpGEMM
+    triangles, k-truss) promise none on their hot loops."""
+    return _densify_calls[0]
+
+
+def host_numeric_calls() -> int:
+    """Assemblies from a host payload (``BSR.from_blocks``) so far
+    (monotonic); the element-wise family and SpGEMM's numeric phase keep
+    their payloads on the device and add none."""
+    return _host_numeric[0]
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +585,7 @@ class BSR:
                     device="cuda") -> "BSR":
         """:meth:`from_blocks_device` for a host payload (numpy), placed on
         ``device`` first."""
+        _host_numeric[0] += 1
         payload = torch.from_numpy(np.asarray(blocks, np.float32)).to(
             torch.device(device))
         return BSR.from_blocks_device(block_rows, block_cols, payload, shape,
@@ -638,6 +654,7 @@ class BSR:
         return s
 
     def to_dense(self) -> torch.Tensor:
+        _densify_calls[0] += 1
         xfer.record("bsr_densify")
         n, m = self.shape
         b = self.block

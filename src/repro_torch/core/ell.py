@@ -156,6 +156,18 @@ class ELL:
         return ELL.from_coo(keys // w, keys % w, vals, shape,
                             pad_deg_to=pad_deg_to, device=device)
 
+    @staticmethod
+    def from_dense(A, pad_deg_to: int = 8, device=None) -> "ELL":
+        """The nonzero entries of a dense matrix (tensor or numpy), row by
+        row; on the tensor's device unless ``device`` is given (numpy input
+        defaults to ``"cuda"``)."""
+        if device is None:
+            device = A.device if isinstance(A, torch.Tensor) else "cuda"
+        A = A.cpu().numpy() if isinstance(A, torch.Tensor) else np.asarray(A)
+        r, c = np.nonzero(A)
+        return ELL.from_coo(r, c, A[r, c].astype(np.float32), A.shape,
+                            pad_deg_to=pad_deg_to, device=device)
+
     def sentinel_indices(self) -> torch.Tensor:
         """(n, max_deg) int32: each row's valid ``indices`` first, then k in
         every other slot, so a row ends at its first k. ``from_coo`` already

@@ -2,8 +2,10 @@
 
 Port of ``repro.core.grb``:
 
-  Descriptor / finalize   the write blend (mask, complement, accum,
-                          replace, transpose_a);
+  Descriptor / desc /     the write blend (mask, complement, accum,
+  finalize                replace, transpose_a);
+  packed_frontiers        the packing policy's override ("auto" / "on" /
+                          "off");
   GBMatrix                one handle over dense, BSR, ELL, BitELL, delta,
                           sharded ELL or sharded BitELL storage, with a
                           linked stored transpose (``.T``); ``with_impl``
@@ -19,7 +21,8 @@ Port of ``repro.core.grb``:
                           materialize-to-ELL fallback; a delta handle
                           composes its base's product with its patch's
                           (``_mxm_delta``); BSR x BSR (a sparse B handle)
-                          through SpGEMM, staying BSR;
+                          through SpGEMM, staying BSR; any other sparse B
+                          densified;
   mxm_words               packed words in, packed words out — the per-hop
                           call of word-resident hop loops (BSR and delta
                           detour through the float mxm on the device);
@@ -55,6 +58,7 @@ on the same mesh (TypeError otherwise), as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Union
 
@@ -112,6 +116,14 @@ class Descriptor:
 
 NULL = Descriptor()
 TRANSPOSE_A = Descriptor(transpose_a=True)
+
+
+def desc(mask=None, complement: bool = False,
+         accum: Optional[S.Monoid] = None, replace: bool = False,
+         transpose_a: bool = False) -> Descriptor:
+    """Convenience constructor mirroring GrB_Descriptor_set."""
+    return Descriptor(mask=mask, complement=complement, accum=accum,
+                      replace=replace, transpose_a=transpose_a)
 
 
 def finalize(d: Descriptor, result: torch.Tensor, out: Optional[torch.Tensor],
@@ -195,10 +207,34 @@ def entry_max_fill(table, b: int) -> float:
 # does (its or_and route is the indicator tile product).
 AUTO_PACK_MIN_WIDTH = 8
 
+_PACK_MODE = "auto"   # "auto" (width threshold) | "on" | "off"
+
+
+@contextlib.contextmanager
+def packed_frontiers(mode: str):
+    """Temporarily override the packing policy: "on" packs every
+    or_and-eligible call whatever its width, "off" packs none (dense, ELL
+    and sharded ELL take their float routes), "auto" restores the
+    ``AUTO_PACK_MIN_WIDTH`` crossover. BitELL and ShardedBitELL keep their
+    word route in every mode. Tests and benchmarks use this; production
+    code leaves "auto"."""
+    global _PACK_MODE
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"packed_frontiers mode {mode!r} not in "
+                         f"('auto', 'on', 'off')")
+    prev, _PACK_MODE = _PACK_MODE, mode
+    try:
+        yield
+    finally:
+        _PACK_MODE = prev
+
 
 def _pack_wanted(f: int) -> bool:
-    """Width side of the packed-frontier policy."""
-    return f >= AUTO_PACK_MIN_WIDTH
+    """Width side of the packed-frontier policy, under the mode of
+    :func:`packed_frontiers`."""
+    if _PACK_MODE == "off":
+        return False
+    return _PACK_MODE == "on" or f >= AUTO_PACK_MIN_WIDTH
 
 
 class GBMatrix:
@@ -591,10 +627,11 @@ def _mxm_bitshard(A: GBMatrix, B, sr: S.Semiring, d: Descriptor,
 def mxm(A, B, sr: S.Semiring, d: Descriptor = NULL,
         out: Optional[torch.Tensor] = None):
     """C<M> accum= A (x) B over a semiring. A: GBMatrix (or raw storage).
-    B: a dense (k, F) frontier or dense handle (returns a dense C), or a
-    BSR handle when A is BSR (SpGEMM, returns a BSR handle; out must be
-    None and the semiring a dot mode); delta operands against a sparse B
-    take their materialization. A sharded A multiplies a dense frontier
+    B: a dense (k, F) frontier or any matrix handle. BSR x BSR with out
+    None under a dot mode is SpGEMM and returns a BSR handle; every other
+    handle B is densified (``B.to_dense()``, as in the JAX package) and
+    gives a dense C; delta operands against a handle B take their
+    materialization. A sharded A multiplies a dense frontier
     on its mesh; a sharded B needs a sharded A. ``out`` is the existing C
     for accum/blend, None meaning replace-into-empty."""
     A = GBMatrix.wrap(A)
@@ -624,15 +661,11 @@ def mxm(A, B, sr: S.Semiring, d: Descriptor = NULL,
         if (A.fmt == "bsr" and B.fmt == "bsr" and out is None
                 and sr.mode in _SPGEMM_MODES):
             return _mxm_spgemm(A, B, sr, d)
-        if B.fmt != "dense":
-            raise TypeError(
-                f"grb.mxm: a sparse B multiplies only as BSR x BSR under a "
-                f"dot semiring with out=None (got {A.fmt} x {B.fmt}, "
-                f"{sr.name}); other sparse B operands are not ported yet")
-        B = B.store
+        # every other sparse B densifies, as in the JAX package
+        B = B.to_dense()
     if not isinstance(B, torch.Tensor) or B.dim() != 2:
         raise TypeError("grb.mxm: B must be a dense (k, F) frontier tensor "
-                        "or a BSR handle")
+                        "or a matrix handle")
     d = d.with_(mask=_dense_mask(d.mask))
     if A.fmt == "delta":
         return _mxm_delta(A, B, sr, d, out)
@@ -1349,9 +1382,7 @@ def _assign_sharded_cols(C, sc: ShardedELL, A, J: np.ndarray,
     else:
         # place the region operand on C's mesh (a put, not a gather)
         if ka == "dense":
-            dn = sa.cpu().numpy()
-            r, c = np.nonzero(dn)
-            e = ELL.from_coo(r, c, dn[r, c], dn.shape, device=sc.device)
+            e = ELL.from_dense(sa, device=sc.device)
         elif isinstance(sa, ELL):
             e = sa
         else:

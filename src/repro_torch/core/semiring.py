@@ -5,6 +5,8 @@ Port of ``repro.core.semiring``. A semiring is (add monoid, multiply op);
 
   dot            plus_times  acc += A @ X
   dot_indicator  or_and      acc |= (A != 0) @ (X != 0) > 0
+                 any_pair    the same ("pick any witness": an alias of
+                             or_and on structure, taking its routes)
   dot_pair       plus_pair   acc += (A != 0) @ (X != 0)
   dot_first      plus_first  acc += A @ (X != 0)
   bcast          min_plus / max_plus, a broadcast-reduce (not a product)
@@ -165,13 +167,14 @@ def _first(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 PLUS_TIMES = Semiring("plus_times", PLUS, lambda a, b: a * b, mode="dot")
 OR_AND = Semiring("or_and", OR, _pair, mode="dot_indicator")
+ANY_PAIR = Semiring("any_pair", OR, _pair, mode="dot_indicator")
 PLUS_PAIR = Semiring("plus_pair", PLUS, _pair, mode="dot_pair")
 MIN_PLUS = Semiring("min_plus", MIN, lambda a, b: a + b, mode="bcast")
 MAX_PLUS = Semiring("max_plus", MAX, lambda a, b: a + b, mode="bcast")
 PLUS_FIRST = Semiring("plus_first", PLUS, _first, mode="dot_first")
 
-SEMIRINGS = {s.name: s for s in [PLUS_TIMES, OR_AND, PLUS_PAIR, MIN_PLUS,
-                                 MAX_PLUS, PLUS_FIRST]}
+SEMIRINGS = {s.name: s for s in [PLUS_TIMES, OR_AND, ANY_PAIR, PLUS_PAIR,
+                                 MIN_PLUS, MAX_PLUS, PLUS_FIRST]}
 
 
 def get(name: str) -> Semiring:

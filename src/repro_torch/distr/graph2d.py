@@ -34,10 +34,20 @@ JAX package caches its jitted shard_maps; the per-shard handles and their
 kernel forms are built once, when the storage is distributed. Inputs
 arrive padded to the mesh (``core.shard`` owns that); a mis-padded
 ``out_rows`` or a packed call on a non-indicator semiring raise
-ValueError / NotImplementedError. The JAX package's dry-run probes
-(``khop_counts_2d``, ``pagerank_2d``, their specs, and
-``scan_host_transfers``, which reads XLA HLO) serve only its
-``launch/dryrun.py`` and are not ported.
+ValueError / NotImplementedError.
+
+The probes ``khop_counts_2d`` and ``pagerank_2d`` run a whole k-hop count
+or PageRank loop over global (indices, mask) ELL rows, sharded by
+``shardings_2d`` / ``pagerank_specs_2d``: per hop one all-gather of the
+frontier over "data" and a local pull on each position. The packed k-hop
+pull is ``grb.mxm_words`` on a shard-local ELL built once per call, so a
+CUDA position launches ``ell_mxv_packed`` once a hop; the int8 pull and
+PageRank's gather-sum are plain torch in row chunks, as in the JAX
+package (XLA there). ``input_specs_2d`` / ``pagerank_specs_2d`` give the
+inputs as meta tensors, which ``launch.dryrun`` shards for its layout
+accounting. The JAX package's ``scan_host_transfers`` reads XLA HLO and
+has no counterpart: the port holds its sharded loops to
+``core.xfer.host_transfers()`` instead.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ import torch
 from repro_torch.core import bitmap
 from repro_torch.core import ops as _core_ops
 from repro_torch.core import semiring as S
+from repro_torch.core.ell import ELL
 from repro_torch.core.shard import frontier_spec as _fr_spec
 from repro_torch.core.shard import local_map
 from repro_torch.distr import mesh as M
@@ -432,4 +443,176 @@ def reduce_minmax_2d(mesh: Mesh, monoid_name: str, axis, nrows: int,
                           ())
         full = nrows * ncols if axis is None else nrows
         return torch.where(total < full, comb(st, torch.zeros_like(st)), st)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the probes: whole k-hop / PageRank loops over the row-sharded ELL layout
+# ---------------------------------------------------------------------------
+_META = torch.device("meta")
+
+
+def input_specs_2d(n: int, max_deg: int, f: int):
+    """Meta stand-ins for the k-hop probe's inputs: indices (n, max_deg)
+    int32, mask (n, max_deg) bool, one-hot seeds (n, f) int8."""
+    return (torch.empty((n, max_deg), dtype=torch.int32, device=_META),
+            torch.empty((n, max_deg), dtype=torch.bool, device=_META),
+            torch.empty((n, f), dtype=torch.int8, device=_META))
+
+
+def shardings_2d(mesh: Mesh, n: int, max_deg: int, f: int):
+    """The k-hop probe's input specs (``distr.mesh.shard`` entries): rows
+    over "data", the frontier's F over the frontier axes."""
+    del n, max_deg, f
+    return (("data", None), ("data", None), ("data", _fr_spec(mesh)))
+
+
+def pagerank_specs_2d(mesh: Mesh, n: int, max_deg: int):
+    """(specs, shardings) of the PageRank probe: the (n, max_deg) rows of
+    A^T (each vertex's in-neighbours) and the (n,) float32 out-degrees,
+    all over "data"."""
+    del mesh
+    specs = (torch.empty((n, max_deg), dtype=torch.int32, device=_META),
+             torch.empty((n, max_deg), dtype=torch.bool, device=_META),
+             torch.empty((n,), dtype=torch.float32, device=_META))
+    return specs, (("data", None), ("data", None), ("data",))
+
+
+def _row_chunk(deg: int, f: int) -> int:
+    """Rows of one chunk of a gathered (rows, deg, f) block, bounded as
+    ``core.ops.ell_mxm`` bounds its chunks."""
+    return max(1, _core_ops._CHUNK_ENTRIES // max(deg * f, 1))
+
+
+def _gather_max(idx, msk, x_full):
+    """(rows, f) OR of ``x_full``'s 0/1 rows over each row's valid ids
+    (``msk`` None: every id is valid), a chunk of rows at a time."""
+    rows, deg = idx.shape
+    out = torch.empty((rows, x_full.shape[1]), dtype=x_full.dtype,
+                      device=x_full.device)
+    step = _row_chunk(deg, x_full.shape[1])
+    for r0 in range(0, rows, step):
+        g = x_full[idx[r0:r0 + step].long()]            # (c, deg, f)
+        if msk is not None:
+            g.masked_fill_(~msk[r0:r0 + step, :, None], 0)
+        out[r0:r0 + step] = g.amax(dim=1)
+    return out
+
+
+def _gather_sum(idx, msk, push):
+    """(rows,) float32 sums of ``push`` over each row's valid ids, a chunk
+    of rows at a time; a bfloat16 push converts inside the reduce."""
+    rows, deg = idx.shape
+    out = torch.empty((rows,), dtype=torch.float32, device=push.device)
+    step = _row_chunk(deg, 1)
+    for r0 in range(0, rows, step):
+        g = push[idx[r0:r0 + step].long()]              # (c, deg)
+        g.masked_fill_(~msk[r0:r0 + step], 0)
+        out[r0:r0 + step] = g.sum(dim=1, dtype=torch.float32)
+    return out
+
+
+def _probe_ell(idx, msk, n: int, sentinel: bool):
+    """A position's rows as a shard-local structural ELL over the gathered
+    frontier's rows (n, and the zero row n with the sentinel)."""
+    if sentinel:
+        msk = idx < n
+    return ELL(shape=(idx.shape[0], n + int(sentinel)), indices=idx,
+               mask=msk, values=msk.to(torch.float32),
+               nnz=int(msk.sum()))
+
+
+def _zero_row(x):
+    return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+
+
+def khop_counts_2d(mesh: Mesh, n: int, k: int, packed: bool = False,
+                   sentinel: bool = False):
+    """``fn(indices, mask, frontier0) -> counts (F,)``: the vertices each
+    query reaches in 1..k hops.
+
+    indices / mask: the global (n, max_deg) ELL pull rows (each vertex's
+    in-neighbours), sharded over "data"; frontier0: the (n, F) int8
+    one-hot seeds, F over "pod" x "model" (``shardings_2d``). The counts
+    land on ``mesh.home``.
+
+    Per hop, as the JAX body: one all-gather of the frontier over "data",
+    the local pull, and-not visited, or into visited; at the end a psum
+    over "data" of each column's count, minus the seed. ``packed``: the
+    frontier travels as ``core.bitmap`` words (32 queries a word) and the
+    pull is ``grb.mxm_words`` on a shard-local ELL built once per call,
+    which launches ``ell_mxv_packed`` on a CUDA position once a hop.
+    ``sentinel``: padded slots hold id n, one all-zero row is appended to
+    the gathered frontier, and the mask input is not read."""
+    rows_spec, _, fr_spec = shardings_2d(mesh, n, 0, 0)
+    out_spec = (fr_spec[1],)
+
+    def run(indices, mask, frontier0):
+        idx = M.shard(mesh, indices, rows_spec)
+        msk = ([None] * mesh.size if sentinel
+               else M.shard(mesh, mask, rows_spec))
+        seeds = M.shard(mesh, frontier0, fr_spec)
+        f_l = seeds[0].shape[1]
+        if packed:
+            local = local_map(lambda i, m: _probe_ell(i, m, n, sentinel),
+                              idx, msk)
+            frontier = [bitmap.pack(x) for x in seeds]
+        else:
+            frontier = seeds
+        visited = frontier
+        for _ in range(k):
+            x_full = M.all_gather(mesh, frontier, "data")
+            if sentinel:
+                x_full = local_map(_zero_row, x_full)
+            if packed:
+                nxt = [bitmap.word_andnot(_words(e, x), v)
+                       for e, x, v in zip(local, x_full, visited)]
+                visited = [bitmap.word_or(v, y) for v, y in zip(visited, nxt)]
+            else:
+                nxt = [_gather_max(i, m, x).masked_fill_(v > 0, 0)
+                       for i, m, x, v in zip(idx, msk, x_full, visited)]
+                visited = [torch.maximum(v, y) for v, y in zip(visited, nxt)]
+            frontier = nxt
+        if packed:
+            counts = [bitmap.reduce_or_columns(v, f_l).to(torch.int32)
+                      for v in visited]
+        else:
+            counts = [v.sum(dim=0, dtype=torch.int32) for v in visited]
+        counts = [c - 1 for c in M.psum(mesh, counts, "data")]
+        return M.unshard(mesh, counts, out_spec)
+    return run
+
+
+def pagerank_2d(mesh: Mesh, n: int, iters: int, alpha: float = 0.85,
+                push_dtype=None):
+    """``fn(indices, mask, out_deg) -> ranks (n,)``: ``iters`` PageRank
+    steps (plus_times) on the row-sharded pull layout
+    (``pagerank_specs_2d``), the ranks on ``mesh.home``.
+
+    Per iteration, as the JAX body: an all-gather over "data" of the push
+    vector (rank over out-degree) in ``push_dtype`` (float32 when None),
+    a masked gather-sum in float32 in row chunks, and a psum over "data"
+    of the dangling vertices' mass. A bfloat16 push converts only inside
+    the reduce, so the all-gather carries bfloat16."""
+    def run(indices, mask, out_deg):
+        idx = M.shard(mesh, indices, ("data", None))
+        msk = M.shard(mesh, mask, ("data", None))
+        deg = M.shard(mesh, out_deg, ("data",))
+        r = [torch.full(d.shape, 1.0 / n, dtype=torch.float32,
+                        device=d.device) for d in deg]
+        inv = [torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-30), 0.0)
+               for d in deg]
+        dangling = [d == 0 for d in deg]
+        for _ in range(iters):
+            push = [ri * vi for ri, vi in zip(r, inv)]
+            if push_dtype is not None:
+                push = [p.to(push_dtype) for p in push]
+            full = M.all_gather(mesh, push, "data")
+            pulled = [_gather_sum(i, m, p)
+                      for i, m, p in zip(idx, msk, full)]
+            mass = M.psum(mesh, [torch.where(dg, ri, 0.0).sum()
+                                 for dg, ri in zip(dangling, r)], "data")
+            r = [(1.0 - alpha) / n + alpha * (pl + dm / n)
+                 for pl, dm in zip(pulled, mass)]
+        return M.unshard(mesh, r, ("data",))
     return run

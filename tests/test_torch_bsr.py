@@ -352,8 +352,11 @@ def test_grb_mxm_bsr_times_bsr_matches_jax(srname, mask_mode):
                               getattr(got.store, f).numpy()), f
     _close(got.store.blocks.numpy(), np.asarray(want.store.blocks),
            TS.get(srname))
-    with pytest.raises(TypeError, match="sparse B"):
-        tgrb.mxm(tgrb.GBMatrix(tA), tgrb.GBMatrix(tB), TS.MIN_PLUS)
+    # a semiring SpGEMM does not take: B densifies, as in the JAX package
+    got = tgrb.mxm(tgrb.GBMatrix(tA), tgrb.GBMatrix(tB), TS.MIN_PLUS)
+    want = jgrb.mxm(jgrb.GBMatrix(jA), jgrb.GBMatrix(jB), JS.MIN_PLUS)
+    assert isinstance(got, torch.Tensor)
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 def test_dense_oracle_matches_jax():

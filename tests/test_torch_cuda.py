@@ -4,7 +4,9 @@ against the same slice on the CPU, the analytics (triangles, k-truss,
 similarity) and the remaining algorithms (BFS, k-hop, SSSP, PageRank, WCC,
 centrality, label propagation) on the card against the CPU,
 ``CALL algo.*`` through the server on the card, and the mesh: meshes of
-4 and 16 positions on one card, the word kernels run on every shard.
+4 and 16 positions on one card, the word kernels run on every shard, the
+k-hop and PageRank probes of ``distr.graph2d`` and ``any_pair`` on each
+storage kind.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -1437,3 +1439,102 @@ def test_mesh_transposed_and_algorithms_on_the_card():
     assert torch.equal(algo.bfs_levels(sh, seeds), algo.bfs_levels(A, seeds))
     assert torch.equal(algo.wcc(sh), algo.wcc(A))
     assert float((algo.pagerank(sh) - algo.pagerank(A)).abs().sum()) < 1e-5
+
+
+# -- the probes and any_pair ---------------------------------------------------
+def _probe_inputs(dev, scale=10, f=64):
+    """R-MAT pull rows (the stored transpose's ELL), one-hot seeds and
+    out-degrees on ``dev``."""
+    from repro_torch.distr import graph2d
+    g = datagen.rmat_graph(scale, edge_factor=8, fmt="ell", device="cpu")
+    idx, msk = graph2d.ell_shard_inputs(g.relations["KNOWS"].A.T)
+    idx_s, _ = graph2d.ell_shard_inputs(g.relations["KNOWS"].A.T,
+                                        sentinel=True)
+    seeds = np.random.default_rng(3).choice(g.n, f, replace=False)
+    fr = np.zeros((g.n, f), np.int8)
+    fr[seeds, np.arange(f)] = 1
+    deg = g.relations["KNOWS"].A.store.mask.sum(dim=1).to(torch.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+    return g.n, t(idx), t(msk), t(idx_s), t(fr), deg.to(dev)
+
+
+def _mesh_on(dev, shape, names):
+    from repro_torch.distr.mesh import Mesh
+    return Mesh(np.array([dev] * int(np.prod(shape)), dtype=object)
+                .reshape(shape), names)
+
+
+@pytest.mark.parametrize("shape,names", [((4, 2), ("data", "model")),
+                                         ((2, 2, 2), ("pod", "data",
+                                                      "model"))])
+def test_probes_on_cuda_launch_per_position_and_equal_cpu(shape, names):
+    """The packed k-hop probes launch ell_mxv_packed once per position per
+    hop; every variant and PageRank equal the same probe on CPU
+    positions."""
+    from repro_torch.distr import graph2d
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cpu = torch.device("cpu")
+    k = 2
+    n, idx, msk, idx_s, fr, deg = _probe_inputs(dev)
+    hn, hidx, hmsk, hidx_s, hfr, hdeg = _probe_inputs(cpu)
+    mesh, cmesh = _mesh_on(dev, shape, names), _mesh_on(cpu, shape, names)
+    for packed, sentinel in ((False, False), (True, False), (True, True)):
+        before = bitmap_mxv.launches
+        got = graph2d.khop_counts_2d(mesh, n, k, packed=packed,
+                                     sentinel=sentinel)(
+            idx_s if sentinel else idx, msk, fr)
+        torch.cuda.synchronize()
+        assert bitmap_mxv.launches - before == (mesh.size * k if packed
+                                                else 0)
+        want = graph2d.khop_counts_2d(cmesh, hn, k, packed=packed,
+                                      sentinel=sentinel)(
+            hidx_s if sentinel else hidx, hmsk, hfr)
+        assert got.device == dev and torch.equal(got.cpu(), want)
+    for pd in (None, torch.bfloat16):
+        got = graph2d.pagerank_2d(mesh, n, iters=10, push_dtype=pd)(
+            idx, msk, deg)
+        want = graph2d.pagerank_2d(cmesh, hn, iters=10, push_dtype=pd)(
+            hidx, hmsk, hdeg)
+        assert float((got.cpu() - want).abs().sum()) < 1e-5
+
+
+def test_packed_probe_with_a_kernel_that_cannot_load_raises(monkeypatch):
+    from repro_torch.distr import graph2d
+    from repro_torch.kernels import KernelError, build
+
+    def no_library(name):
+        raise KernelError(f"cannot load {name}")
+
+    monkeypatch.setattr(build, "load", no_library)
+    monkeypatch.setattr(bitmap_mxv, "_bound", None)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, idx, msk, _, fr, _ = _probe_inputs(dev, scale=8, f=32)
+    fn = graph2d.khop_counts_2d(_mesh_on(dev, (4, 2), ("data", "model")),
+                                n, 2, packed=True)
+    with pytest.raises(KernelError):
+        fn(idx, msk, fr)
+
+
+@pytest.mark.parametrize("fmt,kernel", [("ell", bitmap_mxv),
+                                        ("bitadj", bitadj_mxv),
+                                        ("bsr", bsr_mxm)])
+def test_any_pair_launches_the_or_and_kernel(fmt, kernel):
+    """any_pair takes or_and's kernel on each storage kind (the word
+    kernels, bsr_mxm's indicator mode) and gives its bits."""
+    from repro_torch.core import grb
+    g = datagen.rmat_graph(10, fmt=fmt, device="cuda")
+    A = g.relations["KNOWS"].A
+    X = torch.from_numpy((np.random.default_rng(2).random((g.n, 512))
+                          < 0.01).astype(np.float32)).cuda()
+    before = kernel.launches
+    got = grb.mxm(A, X, S.ANY_PAIR)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 1
+    assert torch.equal(got, grb.mxm(A, X, S.OR_AND))
+    if fmt == "ell":
+        with grb.packed_frontiers("off"):
+            before = kernel.launches
+            off = grb.mxm(A, X, S.ANY_PAIR)
+            torch.cuda.synchronize()
+            assert kernel.launches == before
+        assert torch.equal(off, got)

@@ -436,13 +436,7 @@ def test_delta_mask_matches_jax(grid, fmt):
     """A delta handle as a descriptor mask (the triangles shape), and as a
     mask of a dense-frontier product."""
     jh, th, jo, to, E, B = grid[fmt]
-    if fmt == "ell":
-        # the port multiplies sparse B only as BSR x BSR: reblock both
-        from repro_torch.core.bsr import as_bsr
-        tb = tgrb.GBMatrix(as_bsr(th.store.materialize(), BLOCK))
-        got = host(tgrb.mxm(tb, tb, TS.PLUS_PAIR, tgrb.Descriptor(mask=th)))
-    else:
-        got = host(tgrb.mxm(th, th, TS.PLUS_PAIR, tgrb.Descriptor(mask=th)))
+    got = host(tgrb.mxm(th, th, TS.PLUS_PAIR, tgrb.Descriptor(mask=th)))
     want = host(jgrb.mxm(jh, jh, JS.PLUS_PAIR, jgrb.Descriptor(mask=jh)))
     assert np.array_equal(got, want)
     Bt = torch.from_numpy(np.ascontiguousarray(E.T))    # an (n, n) frontier
