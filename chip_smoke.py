@@ -114,6 +114,22 @@ Phases, each printing one JSON line:
             against its compaction; an s12 graph written through CREATE
             and replayed from its AOF; and an s12 dense handle against
             its ELL
+  models_parity  the models' serving path (``model_cells``; no TPU kernel
+            lies on it): every arch of ``configs.base.ARCHS`` at
+            ``launch.serve.tiny_config``, float32 with TF32 off, params
+            from one seeded init on the CPU copied to the card: the prefill
+            logits and 8 decode steps equal the CPU's within 1e-4, and the
+            decode steps equal one forward over the same tokens
+  serve_qwen2  qwen2-1.5b at its published widths and depth (bfloat16)
+            through ``launch.serve.main`` (``--tiny 0``) at the defaults
+            of ``repro.launch.serve`` (batch 4, prompt 16, 16 new tokens)
+            and at batch 64, prompt 128, 64 new tokens, each run twice (equal
+            tokens): tokens/s, ms a decode step against the step's bound,
+            the prefill's ms and the peak memory; decode over a 64-token
+            prefix against one forward
+  models_widths  every other arch at its published widths (bfloat16),
+            its depth cut (``WIDTH_LAYERS``): a 32-token prefill, decode
+            over it against one forward, 8 greedy steps, every logit finite
 
 then the kernels line (the word kernels' rows with their launches under
 the mesh, ``mesh_launches``, and their rows at a position's local shapes
@@ -122,11 +138,15 @@ launches and shapes under the probes, ``probe_launches`` /
 ``probe_shapes``; the any_pair launches of rows 1-3), the
 nvidia-smi line, and the result line. Any
 failed check raises and the script exits non-zero without a result line;
-so does a host with no CUDA device. Tolerances: every kernel comparison
+so does a host with no CUDA device. The s18 BitELL's host build runs once
+(``bitadj_graph``); each phase that serves it copies its arrays to the card
+anew. Tolerances: every kernel comparison
 is bit for bit (words, 0/1 indicators, integer walk counts below 2^24,
 min / max-plus picks, and the element-wise modes), with TF32 off in the
 plain versions' products; Jaccard scores, float32 quotients, are held to
-1e-6 relative against float64 oracles.
+1e-6 relative against float64 oracles; the models' float32 logits within
+1e-4, their bfloat16 logits within ``BF16_REL_TOL`` of the largest logit
+(``model_cells`` gives the reason).
 Run from the repository root:
 
     python3 chip_smoke.py
@@ -211,6 +231,30 @@ MESH_WRITES = 1024
 PROBE_EDGE_FACTOR = 16
 PROBE_SEED = 0
 PROBE_PR_ITERS = 10
+# the models' serving path (model_cells): every arch at launch.serve's
+# tiny config on the card against the CPU (MODEL_PARITY_STEPS decode
+# steps); qwen2-1.5b at its published size through launch.serve at the
+# JAX entry point's defaults and at a wider batch (batch, prompt, new), its
+# decode held to one forward over SERVE_CHECK_PREFIX tokens; every other
+# arch at its published widths, depth cut to WIDTH_LAYERS (a WIDTHS_PROMPT
+# token prefill, then WIDTHS_STEPS greedy steps)
+MODEL_PARITY_STEPS = 8
+SERVE_RUNS = ((4, 16, 16), (64, 128, 64))
+SERVE_CHECK_PREFIX = 64
+PROFILED_STEPS = 4             # decode steps under torch.profiler
+WIDTHS_PROMPT = 32
+WIDTHS_STEPS = 8
+WIDTH_LAYERS = {
+    # one layer of llama4's 128 experts is about 32 GB in bfloat16
+    "llama4-maverick-400b-a17b": {"n_layers": 1},
+    # shared_attn_every + 1: two segments, so the shared block runs twice
+    "zamba2-1.2b": {"n_layers": 7},
+    "whisper-medium": {"n_layers": 2, "encoder_layers": 2},
+}
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bfloat16 (data sheet)
+# bfloat16 decode against one forward: the largest logit difference over
+# the largest logit (the reason is with model_cells)
+BF16_REL_TOL = 0.05
 # the fill sweeps: an n x n matrix at each tile side and fill, frontiers
 # of SWEEP_F columns; the planted-partition graph's communities and degrees
 SWEEP_N = 8192
@@ -314,7 +358,7 @@ def main() -> int:
     from repro_torch.core.ell import ELL
     from repro_torch.engine import QueryServer
     from repro_torch.graph.datagen import rmat_edges, rmat_graph
-    from repro_torch.graph.graph import GraphBuilder
+    from repro_torch.graph.graph import GraphBuilder, from_arrays
     from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_ewise,
                                      bsr_mxm, bsr_spgemm, build)
     from repro_torch.engine.server import MAX_WIDTH
@@ -1238,14 +1282,40 @@ def main() -> int:
     release()
 
     # -- BitELL: Graph500 scale 18 -------------------------------------------
+    bitadj_built, bitadj_copies = {}, []
+
+    def bitadj_graph(scale):
+        """(a fresh R-MAT BitELL graph on the card, its host build s): the
+        host build (``np.unique`` over the edge keys, most of it) once a
+        scale, its arrays copied to the card anew for each phase that
+        serves it, so that no phase reads another's cached forms and none
+        holds the card's memory through the phases between."""
+        if scale not in bitadj_built:
+            t0 = time.perf_counter()
+            gh = rmat_graph(scale, fmt="bitadj", device="cpu")
+
+            def arrays(M):
+                return tuple({"tiles": s.tiles.numpy(), "cols": s.cols.numpy()}
+                             for s in (M.store, M.T.store))
+
+            bitadj_built[scale] = (
+                gh.n, {k: arrays(r.A) for k, r in gh.relations.items()},
+                arrays(gh.adj.A), time.perf_counter() - t0)
+        n, rels, adj, host_s = bitadj_built[scale]
+        t0 = time.perf_counter()
+        gd = from_arrays(n, rels, adj=adj, device=DEVICE)
+        torch.cuda.synchronize()
+        bitadj_copies.append(time.perf_counter() - t0)
+        return gd, host_s
+
     t0 = time.perf_counter()
-    g = rmat_graph(18, fmt="bitadj", device=DEVICE)
+    g, host_build_s = bitadj_graph(18)
     build_s = time.perf_counter() - t0
     A = g.relations["KNOWS"].A
     check(A.fmt == "bitadj", f"fmt='bitadj' gave {A.fmt}")
     emit_phase(phase="graph_bitadj", card=card, scale=18, n=g.n, nnz=A.nvals,
                P=A.store.n_panels, S=A.store.n_slots, S_T=A.T.store.n_slots,
-               build_s=build_s,
+               build_s=build_s, host_build_s=host_build_s,
                memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
     bitadj_case(A.store, 16, "scale-18 forward handle W=16", timed=True)
     kern["bitadj_mxv_packed"] = bitadj_case(
@@ -1632,7 +1702,8 @@ def main() -> int:
         card=card, emit_phase=emit_phase, zero_launches=zero_launches,
         launches_now=launches_now, variant_launches=variant_launches,
         path=path, bsr_mxm_case=bsr_mxm_case, ell_case=ell_case,
-        bitadj_case=bitadj_case, frontier=frontier, release=release)
+        bitadj_case=bitadj_case, frontier=frontier, release=release,
+        bitadj_graph=bitadj_graph)
     algo_shapes, algo_words, word_shapes = algorithm_cells(torch, h)
     for k, v in algo_words.items():
         kern[k]["launches"] += v
@@ -1647,9 +1718,16 @@ def main() -> int:
     mesh_words, mesh_shapes = mesh_cells(torch, h)
     for k, v in mesh_words.items():
         kern[k]["launches"] += v
+    emit_phase(phase="bitadj_shared", card=card,
+               host_build_s={k: v[3] for k, v in bitadj_built.items()},
+               copies_s=bitadj_copies)
+    bitadj_built.clear()            # the last phase that serves the s18 BitELL
 
     # -- the paper's workload: graph500_s21 probes and the graph dry-run -----
     probe_words, probe_shapes = probe_cells(torch, h)
+
+    # -- the models' serving path: no TPU kernel lies on it ------------------
+    model_cells(torch, h)
 
     # -- the kernels line, the card, the result --------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2149,7 +2227,7 @@ def algorithm_cells(torch, h):
     # WCC on the BitELL serving graph
     bsrc_, bdst, bn = rmat_edges(WCC_BITADJ_SCALE)
     Wb = stored(bsrc_, bdst, bn)
-    g = rmat_graph(WCC_BITADJ_SCALE, fmt="bitadj", device=DEVICE)
+    g, _ = h.bitadj_graph(WCC_BITADJ_SCALE)
     wcc_phase(g, Wb, "bitadj", "bitadj_mxv_packed")
     del g, Wb
     h.release()
@@ -3300,7 +3378,7 @@ def mesh_cells(torch, h):
     h.release()
 
     # -- mesh_serve_bitadj: R-MAT s18 BitELL at (1, 4, 1) ---------------------
-    g = rmat_graph(MESH_BITADJ_SCALE, fmt="bitadj", device=DEVICE)
+    g, _ = h.bitadj_graph(MESH_BITADJ_SCALE)
     A = serve_cell(g, "bitadj_mxv_packed", (MESH_BITADJ_SHAPE,), "bitadj")
     local_case(grb.distribute(A, card_mesh(MESH_BITADJ_SHAPE)),
                "bitadj_mxv_packed", "s18 BitELL")
@@ -3620,6 +3698,289 @@ def probe_cells(torch, h):
                  one_card_equal=True, elapsed_s=time.perf_counter() - t0,
                  probe_elapsed_s=time.perf_counter() - t_all)
     return words_total, shapes
+
+
+def model_cells(torch, h):
+    """The models' serving path on the card (``repro_torch.models``,
+    ``serve.serve_step``, ``launch.serve``). No TPU kernel lies on it: the
+    JAX models compute in XLA, and the port's in plain torch.
+
+    ``models_parity``: every arch at the serve entry point's tiny config,
+    float32 (TF32 off), params from one seeded init on the CPU copied to the
+    card: the prefill logits and MODEL_PARITY_STEPS decode steps equal the
+    same calls on the CPU within 1e-4, and the decode steps equal one
+    forward over the same tokens (``models.forward_reference``: moe at a
+    capacity that drops nothing, as no decode step drops) within 1e-4.
+
+    ``serve_qwen2``: qwen2-1.5b at its published widths and depth, bfloat16,
+    through ``launch.serve.main`` with ``--tiny 0`` (a seeded init on the
+    card) at each of SERVE_RUNS, twice each (the tokens must repeat); every
+    token in the vocabulary; tokens/s, ms a decode step against the step's
+    bound, the prefill's ms and the peak memory. Then teacher-forced decode
+    over a SERVE_CHECK_PREFIX-token prefix against one forward (both also
+    against the float32 forward of the same weights, printed), and
+    PROFILED_STEPS decode steps under ``torch.profiler``: kernel launches
+    and device-busy ms a step against its wall time.
+
+    ``models_widths``: every other arch at its published widths, bfloat16,
+    depth cut (WIDTH_LAYERS, else 2 layers): a WIDTHS_PROMPT-token prefill,
+    teacher-forced decode over the prompt against one forward, then
+    WIDTHS_STEPS greedy steps; every logit finite.
+
+    The bfloat16 comparisons hold the largest logit difference under
+    BF16_REL_TOL of the largest logit: each bfloat16 product rounds its
+    output to 8 bits (2^-9 relative), and a decode step's products (one row
+    a sequence) and the forward's (S rows) take other cuBLAS reductions, so
+    one ulp differences enter at every layer and carry to the logits, which
+    are themselves rounded to bfloat16 before the float32 cast. How far
+    that goes is measured against the float32 forward of the same weights:
+    on an H100 80GB HBM3 at 700 W, qwen2-1.5b's bfloat16 forward lands 3.0%
+    of the largest logit from it, its decode steps 3.2%, and the two 2.6%
+    from each other; both bfloat16 paths are held to BF16_REL_TOL of the
+    float32 forward too."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.base import ARCHS, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import forward_reference, get_model
+    from repro_torch.models.base import map_specs, zeros_from_specs
+    from repro_torch.serve.serve_step import (decode_greedy, make_serve_step,
+                                              teacher_forced_logits)
+    card = h.card
+    t_all = time.perf_counter()
+
+    def batch_of(cfg, B, S, seed, device):
+        rng = np.random.default_rng(seed)
+        b = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                       dtype=torch.int32, device=device)}
+        if cfg.family == "whisper":
+            b["frames"] = torch.as_tensor(rng.normal(size=(
+                B, cfg.n_audio_frames, cfg.d_frontend)), dtype=torch.float32,
+                device=device)
+        if cfg.family == "llava":
+            b["patches"] = torch.as_tensor(rng.normal(size=(
+                B, cfg.n_image_tokens, cfg.d_frontend)), dtype=torch.float32,
+                device=device)
+        return b
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    # -- models_parity: tiny configs, the card against the CPU ---------------
+    t0 = time.perf_counter()
+    for i, name in enumerate(ARCHS):
+        cfg = serve.tiny_config(get_config(name))
+        model = get_model(cfg)
+        on_cpu = model.init(0, "cpu")
+        on_card = model.init(0, "cpu").to(DEVICE)
+        b = batch_of(cfg, 2, MODEL_PARITY_STEPS, 100 + i, "cpu")
+        bc = {k: v.to(DEVICE) for k, v in b.items()}
+        want, _ = model.prefill_fn(on_cpu, b)
+        got, _ = model.prefill_fn(on_card, bc)
+        check(got.device.type == torch.device(DEVICE).type,
+              f"models_parity {name}: prefill left the card")
+        e_prefill = abs_err(got.cpu(), want)
+        cc = zeros_from_specs(model.cache_specs(2, MODEL_PARITY_STEPS), "cpu")
+        gc_ = zeros_from_specs(model.cache_specs(2, MODEL_PARITY_STEPS),
+                               DEVICE)
+        e_decode, steps = 0.0, []
+        for pos in range(MODEL_PARITY_STEPS):
+            tok = b["tokens"][:, pos:pos + 1]
+            want, cc = model.decode_fn(on_cpu, cc, {"tokens": tok}, pos)
+            got, gc_ = model.decode_fn(on_card, gc_,
+                                       {"tokens": tok.to(DEVICE)}, pos)
+            e_decode = max(e_decode, abs_err(got.cpu(), want))
+            steps.append(got[:, 0])
+        ref = forward_reference(cfg).logits_fn(on_card,
+                                               {"tokens": bc["tokens"]})
+        e_fwd = abs_err(torch.stack(steps, dim=1), ref)
+        check(max(e_prefill, e_decode, e_fwd) <= 1e-4,
+              f"models_parity {name}: prefill {e_prefill}, decode "
+              f"{e_decode}, decode against forward {e_fwd} (atol 1e-4)")
+        h.emit_phase(phase="models_parity", card=card, arch=name,
+                     family=cfg.family, dtype=cfg.dtype,
+                     steps=MODEL_PARITY_STEPS, prefill_err=e_prefill,
+                     decode_err=e_decode, decode_vs_forward_err=e_fwd,
+                     atol=1e-4)
+        del on_cpu, on_card, cc, gc_
+    h.emit_phase(phase="models_parity_total", card=card, archs=len(ARCHS),
+                 elapsed_s=time.perf_counter() - t0)
+
+    # -- serve_qwen2: qwen2-1.5b at its published size ------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    specs = get_model(cfg).param_specs()
+    leaves = []
+    map_specs(lambda _, s: leaves.append(s), specs)
+    el = torch.tensor([], dtype=specs["ln_f"].dtype).element_size()
+    param_bytes = sum(int(np.prod(s.shape)) for s in leaves) * el
+    tok_bytes = cfg.vocab * cfg.d_model * el
+    dense_params = (sum(int(np.prod(s.shape)) for s in leaves if
+                        len(s.shape) == 2) - cfg.vocab * cfg.d_model)
+    slot_bytes = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * el
+    for B, P, N in SERVE_RUNS:
+        argv = ["--arch", "qwen2-1.5b", "--tiny", "0", "--batch", str(B),
+                "--prompt-len", str(P), "--max-new", str(N)]
+        torch.cuda.reset_peak_memory_stats()
+        res = serve.main(argv)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        again = serve.main(argv)
+        toks = res.tokens
+        check(toks.device.type == torch.device(DEVICE).type
+              and tuple(toks.shape) == (B, N),
+              f"serve_qwen2: tokens {tuple(toks.shape)} on {toks.device}")
+        check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+              "serve_qwen2: a token outside the vocabulary")
+        check(torch.equal(toks, again.tokens),
+              f"serve_qwen2 batch {B}: two runs from seed 0 differ")
+        # the decode step's least time: its weights (the token table only
+        # for the B rows it gathers), the cache slots filled at the mean
+        # decode position (read) and one slot (written), the logits
+        # written; its operations: the products over those weights and the
+        # attention over the filled slots
+        steps = N - 1
+        filled = P + 1 + (steps - 1) / 2
+        nbytes = (param_bytes - tok_bytes + B * cfg.d_model * el
+                  + B * filled * slot_bytes + B * slot_bytes
+                  + B * cfg.vocab * 4)
+        nops = (2 * B * dense_params + 4 * B * cfg.n_layers * cfg.n_heads
+                * cfg.head_dim * filled)
+        bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS_PER_S)
+        step_ms = res.decode_ms / steps
+        h.emit_phase(
+            phase="serve_qwen2", card=card, arch=cfg.name, dtype=cfg.dtype,
+            layers=cfg.n_layers, d_model=cfg.d_model, batch=B,
+            prompt_len=P, new_tokens=N, tokens_per_s=res.tokens_per_s,
+            decode_tokens_per_s=B * steps / (res.decode_ms / 1e3),
+            decode_ms_per_step=step_ms, decode_steps=steps,
+            prefill_ms=res.prefill_ms, prefill_ms_per_token=res.prefill_ms
+            / P, step_bound_ms=bound_ms, step_bound_by=bound_by,
+            step_bytes=nbytes, step_ops=nops, weight_bytes=param_bytes,
+            cache_bytes=B * (P + N) * slot_bytes,
+            step_over_bound=step_ms / bound_ms, deterministic=True,
+            in_vocab=True, peak_run_gb=peak_gb)
+        del res, again
+        h.release()
+    # teacher-forced decode over a prefix against one forward, both against
+    # the float32 forward of the same weights
+    model = get_model(cfg)
+    params = model.init(0, DEVICE)
+    tokens = batch_of(cfg, 4, SERVE_CHECK_PREFIX, 0, DEVICE)["tokens"]
+    (tf, cache), tf_s = sync_s(lambda: teacher_forced_logits(
+        model, params, tokens, SERVE_CHECK_PREFIX + 2 * PROFILED_STEPS))
+    ref, fwd_s = sync_s(lambda: model.logits_fn(params, {"tokens": tokens}))
+    r = rel(tf, ref)
+    check(bool(torch.isfinite(tf).all()) and r <= BF16_REL_TOL,
+          f"serve_qwen2: decode against forward {r} of the largest logit "
+          f"(limit {BF16_REL_TOL})")
+    ref32 = get_model(dataclasses.replace(cfg, dtype="float32")).logits_fn(
+        copy.deepcopy(params).float(), {"tokens": tokens})
+    r_tf32, r_fwd32 = rel(tf, ref32), rel(ref, ref32)
+    check(max(r_tf32, r_fwd32) <= BF16_REL_TOL,
+          f"serve_qwen2: against the float32 forward, decode {r_tf32} and "
+          f"forward {r_fwd32} of the largest logit (limit {BF16_REL_TOL})")
+    # where a decode step's time goes: PROFILED_STEPS steps timed, then as
+    # many under the profiler, device time summed over their kernels
+    busy_ms = launches = None
+    step = make_serve_step(model)
+    tok = tf[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    def steps(first):
+        nonlocal tok, cache
+        for pos in range(first, first + PROFILED_STEPS):
+            nxt, cache = step(params, cache, {"tokens": tok}, pos)
+            tok = nxt[:, None]
+
+    _, plain_s = sync_s(lambda: steps(SERVE_CHECK_PREFIX))
+    wall_ms = 1e3 * plain_s / PROFILED_STEPS
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, prof_s = sync_s(lambda: steps(SERVE_CHECK_PREFIX
+                                         + PROFILED_STEPS))
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+        busy_us = sum(e.self_device_time_total
+                      if hasattr(e, "self_device_time_total")
+                      else e.self_cuda_time_total for e in kernels)
+        busy_ms = busy_us / 1e3 / PROFILED_STEPS
+        launches = len(kernels) / PROFILED_STEPS
+    h.emit_phase(phase="serve_qwen2_check", card=card, batch=4,
+                 prefix=SERVE_CHECK_PREFIX, max_abs_err=float(
+                     (tf - ref).abs().max()), mean_abs_err=float(
+                     (tf - ref).abs().mean()), max_abs_logit=float(
+                     ref.abs().max()), rel_err=r, rel_tol=BF16_REL_TOL,
+                 argmax_agree=float((tf.argmax(-1) == ref.argmax(-1))
+                                    .float().mean()),
+                 decode_vs_float32_rel_err=r_tf32,
+                 forward_vs_float32_rel_err=r_fwd32,
+                 teacher_forced_s=tf_s, forward_s=fwd_s,
+                 profiled_steps=PROFILED_STEPS, step_wall_ms=wall_ms,
+                 step_profiled_wall_ms=1e3 * prof_s / PROFILED_STEPS,
+                 step_device_busy_ms=busy_ms, step_kernel_launches=launches,
+                 device_idle_share=None if busy_ms is None
+                 else 1 - busy_ms / wall_ms,
+                 elapsed_s=time.perf_counter() - t0)
+    del model, params, tf, ref, ref32, cache, prof
+    h.release()
+
+    # -- models_widths: every other arch at its published widths -------------
+    t0 = time.perf_counter()
+    for i, name in enumerate(ARCHS):
+        if name == "qwen2-1.5b":
+            continue
+        base = get_config(name)
+        cut = WIDTH_LAYERS.get(name, {"n_layers": 2})
+        cfg = dataclasses.replace(base, **cut)
+        model = get_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params, init_s = sync_s(lambda: model.init(0, DEVICE))
+        b = batch_of(cfg, 2, WIDTHS_PROMPT, 200 + i, DEVICE)
+        (pre, _), prefill_s = sync_s(lambda: model.prefill_fn(params, b))
+        cache_len = WIDTHS_PROMPT + WIDTHS_STEPS + 1
+        (tf, cache), tf_s = sync_s(lambda: teacher_forced_logits(
+            model, params, b["tokens"], cache_len))
+        ref = forward_reference(cfg).logits_fn(params,
+                                               {"tokens": b["tokens"]})
+        r = rel(tf, ref)
+        out, greedy_s = sync_s(lambda: decode_greedy(
+            model, params, tf[:, -1:], cache, WIDTHS_PROMPT,
+            WIDTHS_STEPS + 1))
+        finite = bool(torch.isfinite(pre).all() and torch.isfinite(tf).all()
+                      and torch.isfinite(ref).all())
+        check(finite, f"models_widths {name}: a logit is not finite")
+        check(r <= BF16_REL_TOL, f"models_widths {name}: decode against "
+              f"forward {r} of the largest logit (limit {BF16_REL_TOL})")
+        check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+              f"models_widths {name}: a token outside the vocabulary")
+        h.emit_phase(
+            phase="models_widths", card=card, arch=name, family=cfg.family,
+            dtype=cfg.dtype, layers=cfg.n_layers,
+            published_layers=base.n_layers,
+            encoder_layers=cfg.encoder_layers or None, d_model=cfg.d_model,
+            vocab=cfg.vocab, batch=2, prompt_len=WIDTHS_PROMPT,
+            params=sum(p_.numel() for p_ in params.parameters()),
+            init_s=init_s, prefill_ms=1e3 * prefill_s,
+            teacher_forced_ms_per_step=1e3 * tf_s / WIDTHS_PROMPT,
+            decode_ms_per_step=1e3 * greedy_s / WIDTHS_STEPS,
+            decode_steps=WIDTHS_STEPS, max_abs_err=float(
+                (tf - ref).abs().max()), max_abs_logit=float(
+                ref.abs().max()), rel_err=r, rel_tol=BF16_REL_TOL,
+            finite=finite, peak_run_gb=torch.cuda.max_memory_allocated()
+            / 1e9)
+        del model, params, pre, tf, cache, ref, out
+        h.release()
+    h.emit_phase(phase="models_total", card=card,
+                 widths_elapsed_s=time.perf_counter() - t0,
+                 elapsed_s=time.perf_counter() - t_all)
 
 
 if __name__ == "__main__":

@@ -205,8 +205,10 @@ def _store_from_arrays(arrays, shape, dev: torch.device):
                    nnz=int(nnz), emask=emask, **lists)
     if "tiles" in arrays:
         tiles = np.ascontiguousarray(arrays["tiles"]).view(np.int32)
-        t = torch.from_numpy(tiles.copy()).to(dev)
-        nnz = int(bitmap.popcount(t).sum())
+        if dev.type == "cpu" or not tiles.flags.writeable:
+            tiles = tiles.copy()         # else the upload is the one copy
+        t = torch.from_numpy(tiles).to(dev)
+        nnz = _set_bits(t)
         return BitELL(shape=(n, m), tiles=t,
                       cols=torch.from_numpy(
                           np.asarray(arrays["cols"], np.int32).copy()).to(dev),
@@ -219,6 +221,18 @@ def _store_from_arrays(arrays, shape, dev: torch.device):
                values=torch.from_numpy(
                    np.asarray(arrays["values"], np.float32).copy()).to(dev),
                nnz=int(mask.sum()))
+
+
+COUNT_WORDS = 1 << 26          # words one popcount chunk reads (256 MB)
+
+
+def _set_bits(t: torch.Tensor) -> int:
+    """Set bits of an int32 word tensor, counted COUNT_WORDS words at a
+    time: ``popcount``'s int64 temporaries are twice its input, and a
+    Graph500 scale-18 BitELL holds 11.3 GiB of tiles a direction."""
+    flat = t.reshape(-1)
+    return sum(int(bitmap.popcount(flat[i:i + COUNT_WORDS]).sum())
+               for i in range(0, flat.numel(), COUNT_WORDS))
 
 
 def from_arrays(n: int, relations: dict, adj=None, labels=None,

@@ -1,3 +1,3 @@
-"""Launch helpers: the production meshes (``launch.mesh``) and the graph
-dry-run (``launch.dryrun``). Port of the graph half of
-``repro.launch``."""
+"""Launch helpers: the production meshes (``launch.mesh``), the graph
+dry-run (``launch.dryrun``) and the serving entry point (``launch.serve``).
+Port of ``repro.launch``."""

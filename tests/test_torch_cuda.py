@@ -6,7 +6,9 @@ centrality, label propagation) on the card against the CPU,
 ``CALL algo.*`` through the server on the card, and the mesh: meshes of
 4 and 16 positions on one card, the word kernels run on every shard, the
 k-hop and PageRank probes of ``distr.graph2d`` and ``any_pair`` on each
-storage kind.
+storage kind; and the models' serving path: tiny models' prefill and
+decode on the card against the CPU (float32, atol 1e-4), in-place cache
+writes, and ``launch.serve`` on the card by default.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -1538,3 +1540,73 @@ def test_any_pair_launches_the_or_and_kernel(fmt, kernel):
             torch.cuda.synchronize()
             assert kernel.launches == before
         assert torch.equal(off, got)
+
+
+# -- the models' serving path ------------------------------------------------------
+MODEL_ARCHS = ["qwen2-1.5b", "gemma2-9b", "mixtral-8x7b", "rwkv6-3b",
+               "zamba2-1.2b", "whisper-medium", "llava-next-mistral-7b"]
+
+
+@pytest.mark.parametrize("name", MODEL_ARCHS)
+def test_model_decode_on_the_card_matches_cpu(name, no_tf32):
+    """A tiny model (the serve entry point's reduction, float32) from one seeded
+    init on the CPU, copied to the card: prefill and 4 decode steps equal
+    the same calls on the CPU within atol 1e-4 (float32 with TF32 off; the
+    sums' order differs between the devices)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import tiny_config
+    from repro_torch.models import get_model
+    from repro_torch.models.base import zeros_from_specs
+    cfg = tiny_config(get_config(name))
+    model = get_model(cfg)
+    cpu = model.init(0, "cpu")
+    card = get_model(cfg).init(0, "cpu").to("cuda")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, 6)).astype(np.int32))}
+    if cfg.family == "whisper":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.n_audio_frames, cfg.d_frontend)).astype(np.float32))
+    if cfg.family == "llava":
+        batch["patches"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32))
+    want, _ = model.prefill_fn(cpu, batch)
+    got, _ = model.prefill_fn(card, {k: v.cuda() for k, v in batch.items()})
+    assert got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-4)
+    cc = zeros_from_specs(model.cache_specs(2, 8), "cpu")
+    gc_ = zeros_from_specs(model.cache_specs(2, 8), "cuda")
+    for pos in range(4):
+        tok = batch["tokens"][:, pos:pos + 1]
+        want, cc = model.decode_fn(cpu, cc, {"tokens": tok}, pos)
+        got, gc_ = model.decode_fn(card, gc_, {"tokens": tok.cuda()}, pos)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+def test_model_cache_is_written_in_place_on_the_card():
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import tiny_config
+    from repro_torch.models import get_model
+    from repro_torch.models.base import zeros_from_specs
+    model = get_model(tiny_config(get_config("qwen2-1.5b")))
+    params = model.init(0, "cuda")
+    cache = zeros_from_specs(model.cache_specs(2, 8), "cuda")
+    ptrs = [c.data_ptr() for c in cache]
+    _, out = model.decode_fn(params, cache,
+                             {"tokens": torch.tensor([[3], [4]]).cuda()}, 5)
+    torch.cuda.synchronize()
+    assert out is cache and [c.data_ptr() for c in out] == ptrs
+    written = (cache[0] != 0).any(dim=(0, 1, 3, 4)).cpu().tolist()
+    assert written == [False] * 5 + [True, False, False]
+
+
+def test_serve_entry_point_runs_on_the_card_by_default():
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", "qwen2-1.5b", "--batch", "2",
+                      "--prompt-len", "4", "--max-new", "3"])
+    assert res.tokens.is_cuda and res.tokens.shape == (2, 3)
+    again = serve.main(["--arch", "qwen2-1.5b", "--batch", "2",
+                        "--prompt-len", "4", "--max-new", "3"])
+    assert torch.equal(again.tokens, res.tokens)
