@@ -130,6 +130,20 @@ Phases, each printing one JSON line:
   models_widths  every other arch at its published widths (bfloat16),
             its depth cut (``WIDTH_LAYERS``): a 32-token prefill, decode
             over it against one forward, 8 greedy steps, every logit finite
+  train_parity  the models' training path (``train_cells``; no TPU
+            kernel lies on it either): every arch at the serve entry
+            point's tiny config, float32 with TF32 off, the loss and every
+            gradient leaf on the card against the CPU, then 3 optimizer
+            steps (AdamW; llama4 one Adafactor step; qwen2 with 2
+            microbatches and int8 compression), each step's loss and the
+            params after them against the CPU's
+  train_qwen2  qwen2-1.5b at its published size (bfloat16, AdamW, remat)
+            through ``launch.train`` at batch 8 x 1,024 tokens: 10 steps,
+            one checkpoint (host copy, write, bytes), a restore into a fresh
+            state held to the saved one bit for bit, the last 2 of 12 steps
+            from both (uninterrupted and resumed losses compared); losses,
+            ms a step, tokens/s against the step's bound, peak memory, and
+            one step under ``torch.profiler`` (launches, device-busy ms)
 
 then the kernels line (the word kernels' rows with their launches under
 the mesh, ``mesh_launches``, and their rows at a position's local shapes
@@ -146,7 +160,8 @@ min / max-plus picks, and the element-wise modes), with TF32 off in the
 plain versions' products; Jaccard scores, float32 quotients, are held to
 1e-6 relative against float64 oracles; the models' float32 logits within
 1e-4, their bfloat16 logits within ``BF16_REL_TOL`` of the largest logit
-(``model_cells`` gives the reason).
+(``model_cells`` gives the reason); the training path's as ``train_cells``
+states.
 Run from the repository root:
 
     python3 chip_smoke.py
@@ -252,6 +267,26 @@ WIDTH_LAYERS = {
     "whisper-medium": {"n_layers": 2, "encoder_layers": 2},
 }
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bfloat16 (data sheet)
+# the training path (train_cells): every arch's serve-entry tiny config,
+# TRAIN_PARITY_STEPS optimizer steps card against CPU (TRAIN_PARITY_DENSE
+# with microbatches and int8 compression); then qwen2-1.5b at its published
+# size through launch.train at TRAIN_BATCH x TRAIN_SEQ tokens a step,
+# TRAIN_SAVED_AT steps, one checkpoint, and the last steps resumed from it
+TRAIN_PARITY_STEPS = 3
+TRAIN_PARITY_LR = 1e-3
+TRAIN_PARITY_SHAPE = (2, 8)     # batch, sequence
+TRAIN_PARITY_DENSE = "qwen2-1.5b"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+# 12 steps: at launch.train's lr (1e-3, 5 warmup steps) a fresh batch's
+# loss over 151,936-way random-init logits falls about 0.02 in 12 steps and
+# not past one batch's noise in 6 (each step lowers its own batch's loss
+# by 0.08-0.7: train_cells checks that)
+TRAIN_SAVED_AT = 10
+TRAIN_STEPS = 12
+# resumed losses against the uninterrupted run's, relative (the reason is
+# with train_cells)
+TRAIN_RESUME_RTOL = 1e-3
 # bfloat16 decode against one forward: the largest logit difference over
 # the largest logit (the reason is with model_cells)
 BF16_REL_TOL = 0.05
@@ -1728,6 +1763,9 @@ def main() -> int:
 
     # -- the models' serving path: no TPU kernel lies on it ------------------
     model_cells(torch, h)
+
+    # -- the models' training path: no TPU kernel lies on it either ----------
+    train_cells(torch, h)
 
     # -- the kernels line, the card, the result --------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
@@ -3982,6 +4020,301 @@ def model_cells(torch, h):
                  widths_elapsed_s=time.perf_counter() - t0,
                  elapsed_s=time.perf_counter() - t_all)
 
+
+def train_cells(torch, h):
+    """The training path on the card (``repro_torch.train``,
+    ``distr.compression``, the models' ``loss_fn``, ``launch.train``). No
+    TPU kernel lies on it: the JAX package computes loss, backward and
+    update in XLA, the port in plain torch with autograd.
+
+    ``train_parity``: every arch at the serve entry point's tiny config,
+    float32 (TF32 off), params from one seeded init on the CPU copied to
+    the card, batches from ``train.data``'s stream: the loss and every
+    gradient leaf, then TRAIN_PARITY_STEPS steps of the arch's optimizer
+    (AdamW; Adafactor for llama4), TRAIN_PARITY_DENSE with microbatches=2
+    and int8 compression, each step's loss and the params after them held
+    to the CPU's. Tolerances: the loss within 1e-5 (the steps' losses
+    1e-4); a gradient leaf within 1e-5 plus 1e-4 of its largest CPU value;
+    the params within 1% of TRAIN_PARITY_LR a step, but for at most 1e-4
+    of them, each within 2 lr a step. Adam's step m / sqrt(v) does not
+    scale with the gradient, so an element whose gradient is at rounding
+    level (a near-zero true gradient) steps by the sign and ratio of that
+    rounding, which the two devices' sums order differently; under int8
+    compression a gradient within rounding of a half step of the scale
+    also takes the neighbouring code on one device. The line prints how
+    many elements passed the 1% and their first step's gradient against
+    their leaf's largest (rounding level, about 1e-7 of it). llama4 routes
+    top-1: its routing weight p / p is 1, so its router's gradient is
+    rounding (held under 1e-8) and Adafactor's first step, g / |g|, moves
+    it by that rounding's sign (held to 2 lr; the arch takes one step: the
+    next would route on the moved router).
+
+    ``train_qwen2``: qwen2-1.5b at its published widths and depth,
+    bfloat16, AdamW, remat on, through ``launch.train.run`` (``main``'s
+    body) with ``--tiny 0 --batch TRAIN_BATCH --seq TRAIN_SEQ --steps
+    TRAIN_SAVED_AT``: the loss a step (finite), each step's ms and
+    tokens/s (host clock, synchronised) against the step's operations at
+    the bfloat16 peak, the peak memory. Then one checkpoint of the params
+    and the optimizer state (``train.checkpoint.AsyncCheckpointer``) in a
+    directory of the checkout: its host-copy and write seconds and bytes; a
+    restore into a fresh state (seed 1), held to the saved state bit for
+    bit; the last TRAIN_STEPS - TRAIN_SAVED_AT steps of the same schedule
+    from the saved state (uninterrupted) and from the restored one
+    (resumed), their losses within TRAIN_RESUME_RTOL (the first resumed
+    step sees bit-equal inputs; backward's atomic adds may order sums
+    otherwise after it); the loss falling: each of those four steps lowers
+    its own batch's loss (a fresh batch's loss falls only about 0.02 in
+    the 12 steps, inside one batch's noise; printed, first against last);
+    one more step under ``torch.profiler``: kernel
+    launches and device-busy ms against the step's wall time. The
+    directory is removed afterwards; a disk that cannot hold the
+    checkpoint fails the phase."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ARCHS, ShapeConfig, get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import get_model, jax_leaves
+    from repro_torch.models.base import tree_leaves, tree_unflatten
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.data import synthetic_batch, to_device
+    from repro_torch.train.train_step import make_train_step
+    card = h.card
+    t_all = time.perf_counter()
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def grads_of(model, params, batch):
+        params.requires_grad_(True)
+        loss = model.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        return float(loss.detach()), jax_leaves(tree_unflatten(params, grads))
+
+    # -- train_parity: tiny configs, the card against the CPU -----------------
+    t0 = time.perf_counter()
+    B, S = TRAIN_PARITY_SHAPE
+    shape = ShapeConfig("parity", S, B, "train")
+    lr = TRAIN_PARITY_LR
+    for i, name in enumerate(ARCHS):
+        cfg = serve.tiny_config(get_config(name))
+        model = get_model(cfg)
+        on_cpu = model.init(0, "cpu")
+        on_card = model.init(0, "cpu").to(DEVICE)
+        batch = synthetic_batch(cfg, shape, 200)        # the first step's
+        l_cpu, g_cpu = grads_of(model, on_cpu, to_device(batch, "cpu"))
+        l_card, g_card = grads_of(model, on_card, to_device(batch, DEVICE))
+        e_loss = abs(l_card - l_cpu)
+        g_ratio, router_grad = 0.0, None
+        for (path, gc_, _), (_, gg, _) in zip(g_cpu, g_card):
+            for c, g in zip(gc_, gg):
+                check(g.device.type == torch.device(DEVICE).type,
+                      f"train_parity {name}: a gradient left the card")
+                g_ratio = max(g_ratio, abs_err(g.cpu(), c)
+                              / (1e-5 + 1e-4 * float(c.abs().max())))
+            if path.endswith("['router']"):
+                router_grad = max(float(x.abs().max()) for x in gc_ + [
+                    y.cpu() for y in gg])
+        check(e_loss <= 1e-5 and g_ratio <= 1.0,
+              f"train_parity {name}: loss {e_loss} (atol 1e-5), gradients "
+              f"{g_ratio} of their tolerance")
+        top1 = cfg.family == "moe" and cfg.experts_per_token == 1
+        if top1:
+            check(router_grad <= 1e-8, f"train_parity {name}: the top-1 "
+                  f"router's gradient {router_grad} is not rounding")
+        kw = ({"microbatches": 2, "compress_grads": True}
+              if name == TRAIN_PARITY_DENSE else {})
+        steps = 1 if top1 else TRAIN_PARITY_STEPS
+        opt_cfg = opt_mod.OptConfig(name=cfg.optimizer, lr=lr,
+                                    warmup_steps=1, total_steps=steps)
+        losses = {}
+        for dev, params in (("cpu", on_cpu), (DEVICE, on_card)):
+            step_fn = make_train_step(model, opt_cfg, **kw)
+            state = opt_mod.init_fn(cfg.optimizer)(params)
+            err, losses[dev] = None, []
+            for k in range(steps):
+                b = to_device(synthetic_batch(cfg, shape, 200 + k), dev)
+                if kw:
+                    params, state, m, err = step_fn(params, state, b, err)
+                else:
+                    params, state, m = step_fn(params, state, b)
+                losses[dev].append(float(m["loss"]))
+        e_steps = max(abs(a - b) for a, b in zip(losses[DEVICE],
+                                                  losses["cpu"]))
+        atol = 0.01 * lr * steps
+        worst, past, numel, router_moved = 0.0, 0, 0, None
+        # the first step's gradient of the elements past atol, over their
+        # leaf's largest
+        past_grad = 0.0
+        for (path, pc, _), (_, pg, _), (_, gc_, _) in zip(
+                jax_leaves(on_cpu), jax_leaves(on_card), g_cpu):
+            d = torch.cat([(a.detach() - b.detach().cpu()).abs().flatten()
+                           for a, b in zip(pc, pg)])
+            if top1 and path.endswith("['router']"):
+                router_moved = float(d.max())
+                continue
+            worst = max(worst, float(d.max()))
+            out = d > atol
+            past += int(out.sum())
+            numel += d.numel()
+            if out.any():
+                g0 = torch.cat([g.abs().flatten() for g in gc_])
+                past_grad = max(past_grad, float(
+                    g0[out].max() / torch.clamp(g0.max(), min=1e-30)))
+        allowed = int(1e-4 * numel)
+        check(e_steps <= 1e-4 and past <= allowed
+              and worst <= 2 * lr * steps,
+              f"train_parity {name}: step losses {e_steps} (atol 1e-4), "
+              f"{past} params past {atol} (allowed {allowed}), largest "
+              f"{worst}")
+        if top1:
+            check(router_moved <= 2 * lr * 1.001,
+                  f"train_parity {name}: router moved {router_moved}")
+        h.emit_phase(phase="train_parity", card=card, arch=name,
+                     family=cfg.family, dtype=cfg.dtype,
+                     optimizer=cfg.optimizer, steps=steps, lr=lr,
+                     microbatches=kw.get("microbatches", 1),
+                     compress_grads=bool(kw), loss_err=e_loss,
+                     grad_err_over_tol=g_ratio, step_losses=losses[DEVICE],
+                     step_loss_err=e_steps, params_max_err=worst,
+                     params_atol=atol, params_past_atol=past,
+                     params_past_allowed=allowed, params=numel,
+                     past_grad_rel=past_grad if past else None,
+                     router_grad=router_grad, router_moved=router_moved)
+        del on_cpu, on_card
+    h.emit_phase(phase="train_parity_total", card=card, archs=len(ARCHS),
+                 elapsed_s=time.perf_counter() - t0)
+
+    # -- train_qwen2: qwen2-1.5b at its published size -------------------------
+    t0 = time.perf_counter()
+    argv = ["--arch", "qwen2-1.5b", "--tiny", "0", "--device", DEVICE,
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    run = train.run(argv + ["--steps", str(TRAIN_SAVED_AT)])
+    torch.cuda.synchronize()
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    params, state = run.params, run.opt_state
+    check(all(np.isfinite(run.losses)),
+          f"train_qwen2: losses {run.losses} not finite")
+    leaves = tree_leaves((params, state))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params = sum(p.numel() for p in params.parameters())
+    # the step's least time: its products' operations at the bfloat16 peak
+    # (forward and backward: 6 per weight a token, the token table a
+    # lookup; attention's QK and PV over every position pair)
+    mm_params = n_params - cfg.vocab * cfg.d_model
+    nops = (6 * mm_params * tokens + 12 * cfg.n_layers * TRAIN_BATCH
+            * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim)
+    bound_ms, bound_by = bound(state_bytes, nops, BF16_FLOPS_PER_S)
+
+    ckdir = tempfile.mkdtemp(prefix=".train_ckpt_", dir=ROOT)
+    try:
+        free = shutil.disk_usage(ckdir).free
+        check(free >= 1.05 * state_bytes,
+              f"train_qwen2: {free / 1e9:.1f} GB free on the checkout's "
+              f"disk; one checkpoint takes {state_bytes / 1e9:.1f} GB")
+        writer = ckpt.AsyncCheckpointer(ckdir, keep=1)
+        _, host_s = sync_s(lambda: writer.save((params, state),
+                                               TRAIN_SAVED_AT))
+        t1 = time.perf_counter()
+        writer.wait()
+        write_s = time.perf_counter() - t1
+        step_dir = os.path.join(ckdir, f"step_{TRAIN_SAVED_AT}")
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                       for f in os.listdir(step_dir))
+        fresh = model.init(1, DEVICE)
+        fresh_state = opt_mod.init_fn(cfg.optimizer)(fresh)
+        (_, at), restore_s = sync_s(lambda: ckpt.restore(
+            (fresh, fresh_state), ckdir))
+        equal = at == TRAIN_SAVED_AT and all(
+            torch.equal(a, b) for a, b in zip(
+                leaves, tree_leaves((fresh, fresh_state))))
+        check(equal, "train_qwen2: the restored state differs from the "
+              "saved one")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # the last steps of the same schedule, from the saved state and from
+    # the restored one
+    step_fn = make_train_step(model, train.opt_config(cfg, train.parse_args(
+        argv + ["--steps", str(TRAIN_STEPS)])))
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+    def last_steps(p, st):
+        """The steps' losses and seconds, and each batch's loss after its
+        own step."""
+        out, secs, after = [], [], []
+        for k in range(TRAIN_SAVED_AT, TRAIN_STEPS):
+            b = to_device(synthetic_batch(cfg, shape, k), DEVICE)
+            (p, st, m), sec = sync_s(lambda: step_fn(p, st, b))
+            out.append(float(m["loss"]))
+            secs.append(sec)
+            with torch.no_grad():
+                after.append(float(model.loss_fn(p, b)))
+        return out, secs, after
+
+    run_losses, run_s = run.losses, run.step_s
+    kept, kept_s, kept_after = last_steps(params, state)
+    del run, params, state, leaves
+    h.release()
+    resumed, resumed_s, resumed_after = last_steps(fresh, fresh_state)
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, kept))
+    check(all(np.isfinite(resumed)) and resume_rel <= TRAIN_RESUME_RTOL,
+          f"train_qwen2: resumed losses {resumed} against {kept} "
+          f"(rtol {TRAIN_RESUME_RTOL})")
+    check(all(np.isfinite(kept_after + resumed_after)) and all(
+        a < b for a, b in zip(kept_after + resumed_after, kept + resumed)),
+          f"train_qwen2: a step did not lower its own batch's loss: "
+          f"{kept + resumed} -> {kept_after + resumed_after}")
+    # one more step under the profiler: its kernels' device time
+    b = to_device(synthetic_batch(cfg, shape, TRAIN_STEPS), DEVICE)
+    busy_ms = launches = None
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, prof_s = sync_s(lambda: step_fn(fresh, fresh_state, b))
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+        busy_ms = sum(e.self_device_time_total
+                      if hasattr(e, "self_device_time_total")
+                      else e.self_cuda_time_total for e in kernels) / 1e3
+        launches = len(kernels)
+    # the steady steps: all but the run's first (which warms the card up)
+    steady_ms = 1e3 * float(np.median(run_s[1:] + kept_s + resumed_s))
+    h.emit_phase(
+        phase="train_qwen2", card=card, arch=cfg.name, dtype=cfg.dtype,
+        optimizer=cfg.optimizer, remat=cfg.remat, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab, params=n_params,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, tokens_per_step=tokens,
+        losses=run_losses + kept, resumed_losses=resumed,
+        first_loss=run_losses[0], last_loss=kept[-1],
+        batch_loss_after_its_step=kept_after,
+        resumed_batch_loss_after_its_step=resumed_after,
+        resume_rel_err=resume_rel, resume_rtol=TRAIN_RESUME_RTOL,
+        step_ms=[1e3 * x for x in run_s + kept_s],
+        resumed_step_ms=[1e3 * x for x in resumed_s],
+        steady_step_ms=steady_ms, tokens_per_s=tokens / (steady_ms / 1e3),
+        step_ops=nops, step_bound_ms=bound_ms, step_bound_by=bound_by,
+        step_over_bound=steady_ms / bound_ms, peak_run_gb=peak_run_gb,
+        state_bytes=state_bytes, checkpoint_bytes=ck_bytes,
+        checkpoint_host_copy_s=host_s, checkpoint_write_s=write_s,
+        restore_s=restore_s, disk_free_gb=free / 1e9,
+        restored_bit_for_bit=equal, profiled_step_wall_ms=1e3 * prof_s,
+        step_device_busy_ms=busy_ms, step_kernel_launches=launches,
+        device_idle_share=None if busy_ms is None
+        else 1 - busy_ms / steady_ms, elapsed_s=time.perf_counter() - t0)
+    del fresh, fresh_state, prof
+    h.release()
+    h.emit_phase(phase="train_total", card=card,
+                 elapsed_s=time.perf_counter() - t_all)
 
 if __name__ == "__main__":
     if "--seed" in sys.argv:

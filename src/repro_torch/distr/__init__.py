@@ -1,2 +1,3 @@
-"""The device mesh (``distr.mesh``) and the op lowerings over it
-(``distr.graph2d``): port of ``repro.distr``'s op half."""
+"""The device mesh (``distr.mesh``), the op lowerings over it
+(``distr.graph2d``) and int8 gradient compression (``distr.compression``):
+port of ``repro.distr``'s op half."""

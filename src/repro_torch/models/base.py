@@ -8,8 +8,14 @@ scan's layers on axis 0, the port keeps a list with one entry per layer
 (``layers``; zamba2's ``segments``, a list of segments each a list of
 blocks; whisper's ``enc_layers`` and ``dec_layers``), and the params are a
 ``ParamTree``: an ``nn.Module`` with one submodule per layer.
+``as_tree`` reads a ``ParamTree`` as plain nested dicts and lists of its
+parameters; gradients and optimizer state are such trees, in the same
+nesting (``tree_map``, ``tree_leaves``, ``tree_unflatten``), and
+``jax_leaves`` reads any of them as the JAX package's stacked leaves.
 
-Serving only: the bundle carries no loss or training input specs yet.
+The bundle carries the training half too: ``loss_fn`` (mean next-token
+``cross_entropy``) and ``train_input_specs``. Its parameters are frozen:
+training turns ``requires_grad_()`` on.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 # a CUDA device without a card raises: an entry point never falls back to
@@ -51,6 +58,7 @@ class ParamTree(nn.Module):
 
     def __init__(self, items: dict):
         super().__init__()
+        self._keys = tuple(items)         # the specs' order
         for k, v in items.items():
             if isinstance(v, torch.Tensor):
                 self.register_parameter(
@@ -65,6 +73,66 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
+def as_tree(node):
+    """A ``ParamTree`` as nested dicts and lists of its parameters (the same
+    tensors, in the specs' order); any other tree as it is."""
+    if isinstance(node, ParamTree):
+        return {k: as_tree(node[k]) for k in node._keys}
+    if isinstance(node, nn.ModuleList):
+        return [as_tree(x) for x in node]
+    return node
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (and of
+    ``rest``, trees of the same nesting), keeping the nesting."""
+    tree = as_tree(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """The tree of ``like``'s nesting holding ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def jax_leaves(tree, path: str = ""):
+    """``[(keystr, tensors, stacked)]``: the JAX package's leaves of a port
+    tree (a ``ParamTree``, or nested dicts, lists and tuples of tensors), in
+    ``jax.tree_util``'s flatten order (tuple positions, then dict keys
+    sorted as strings, so not the port's order). A stacked leaf's tensors
+    are its layers, in order; any other leaf is one tensor. Its stacked
+    rank is ``tensors[0].dim() + stacked``."""
+    tree = as_tree(tree)
+    if isinstance(tree, tuple):
+        return [g for i, x in enumerate(tree)
+                for g in jax_leaves(x, f"{path}[{i}]")]
+    if isinstance(tree, dict):
+        return [g for k in sorted(tree)
+                for g in jax_leaves(tree[k], f"{path}['{k}']")]
+    if isinstance(tree, list):
+        if isinstance(tree[0], list):       # zamba2's segments
+            return jax_leaves({f"seg{i}": s for i, s in enumerate(tree)},
+                              path)
+        layers = [jax_leaves(x, path) for x in tree]
+        return [(p, [layer[j][1][0] for layer in layers], True)
+                for j, (p, _, _) in enumerate(layers[0])]
+    return [(path, [tree], False)]
+
+
 def map_specs(fn, node, path=()):
     """``fn(path, spec)`` over a spec tree's leaves, in the tree's order
     (dict insertion order, list index), keeping its nesting."""
@@ -76,23 +144,25 @@ def map_specs(fn, node, path=()):
 
 
 def init_from_specs(specs, seed: int = 0, device="cuda") -> ParamTree:
-    """Deterministic init from one ``torch.Generator`` on ``device``: 1-D
-    leaves (norm gains, biases) zero, matrices normal(0, 0.02), as in the
-    JAX init (whose draws ``jax.random`` makes and this cannot equal;
-    ``models.params_from_numpy`` carries the JAX package's params across).
-    Leaves are drawn in their own dtype, so no float32 copy of a large
-    bfloat16 leaf is made."""
+    """Deterministic init from one ``torch.Generator`` on ``device``: a leaf
+    whose stacked rank is at most 1 (``ln_f``, a lone bias) zero, every
+    other leaf normal(0, 0.02), as in the JAX init, which decides by the
+    stacked leaf's rank (``jax_leaves``): per-layer norm gains and biases
+    are (L, D) there, so they are drawn. (``jax.random``'s draws cannot be
+    equalled; ``models.params_from_numpy`` carries the JAX package's params
+    across.) Leaves are drawn in their own dtype, so no float32 copy of a
+    large bfloat16 leaf is made."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-
-    def leaf(_, s):
-        t = torch.zeros(s.shape, dtype=s.dtype, device=dev)
-        if len(s.shape) > 1:
-            t.normal_(0.0, 0.02, generator=gen)
-        return t
-
-    return ParamTree(map_specs(leaf, specs))
+    params = ParamTree(map_specs(
+        lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=dev), specs))
+    with torch.no_grad():
+        for _, ts, stacked in jax_leaves(params):
+            if ts[0].dim() + stacked > 1:
+                for t in ts:
+                    t.normal_(0.0, 0.02, generator=gen)
+    return params
 
 
 def zeros_from_specs(specs, device):
@@ -104,10 +174,42 @@ def zeros_from_specs(specs, device):
     return type(specs)(zeros_from_specs(v, device) for v in specs)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -100) -> torch.Tensor:
+    """Mean next-token CE over float32 logits; label ``ignore`` positions
+    excluded (VLM frontends), an all-ignored batch 0. The gold logit is a
+    gather (the JAX package's select-and-sum over the vocabulary adds exact
+    zeros: the same value)."""
+    logits = logits.float()
+    valid = labels != ignore
+    safe = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    tokloss = (lse - gold) * valid
+    return tokloss.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def token_specs(batch: int, seq: int) -> dict:
+    return {"tokens": spec((batch, seq), torch.int32),
+            "labels": spec((batch, seq), torch.int32)}
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, rematerialised in backward under ``cfg.remat`` when
+    grad is on (the JAX package's ``jax.checkpoint`` around a layer); a
+    plain call otherwise, so serving runs as it did."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
 @dataclasses.dataclass
 class ModelBundle:
     cfg: object
     param_specs: Callable[[], dict]
+    loss_fn: Callable                 # (params, batch) -> scalar
+    train_input_specs: Callable       # (ShapeConfig) -> batch spec dict
     prefill_fn: Optional[Callable] = None   # (params, batch) -> (logits, cache)
     decode_fn: Optional[Callable] = None    # (params, cache, batch, pos) -> (logits, cache)
     cache_specs: Optional[Callable] = None  # (batch, seq) -> cache spec tree

@@ -5,7 +5,8 @@ Time-mix: low-rank (LoRA) data-dependent decay w_t = exp(-exp(w0 + lora(x)));
 wkv state recurrence S_t = diag(w_t) S_{t-1} + k_t^T v_t, in float32, run
 as a loop over time (constant-size state: decode is O(1) memory a token).
 The JAX package's simplification is kept: a plain per-channel lerp
-token-shift instead of the ddlerp mixing stack.
+token-shift instead of the ddlerp mixing stack. Each layer is
+rematerialised in backward under ``cfg.remat`` when grad is on.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.base import (ModelBundle, dtype_of, spec,
-                                     token_input_specs)
+from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
+                                     remat, spec, token_input_specs,
+                                     token_specs)
 
 LORA_R = 64
 
@@ -103,37 +105,51 @@ def _channel_mix(p, x, shift_state):
     return torch.sigmoid(L.mm(xr, p["wcr"])) * L.mm(k, p["wcv"]), x[:, -1, :]
 
 
+def _block(cfg, lp, h, tm_s, cm_s, wkv_s):
+    att, tm_new, wkv_new = _time_mix(cfg, lp, L.rmsnorm(h, lp["ln1"]), tm_s,
+                                     wkv_s)
+    h = h + att
+    ffn, cm_new = _channel_mix(lp, L.rmsnorm(h, lp["ln2"]), cm_s)
+    return h + ffn, tm_new, cm_new, wkv_new
+
+
 def forward(cfg: ModelConfig, params, tokens, states=None, last_only=False):
-    """states: None (zero states, fresh ones returned) or the decode cache,
-    written in place."""
+    """states: None (zero states; fresh ones returned, stacked by layer) or
+    the decode cache, written in place."""
     B, T = tokens.shape
     D, H, hd = cfg.d_model, cfg.ssm_heads, cfg.head_dim
     h = L.embed(params["embed"], tokens, D, False)
-    if states is None:
-        states = {
-            "tm_shift": torch.zeros((cfg.n_layers, B, D), dtype=h.dtype,
-                                    device=h.device),
-            "cm_shift": torch.zeros((cfg.n_layers, B, D), dtype=h.dtype,
-                                    device=h.device),
-            "wkv": torch.zeros((cfg.n_layers, B, H, hd, hd),
-                               dtype=torch.float32, device=h.device),
-        }
+    fresh = states is None
+    if fresh:
+        zero = h.new_zeros((B, D))
+        wkv0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                           device=h.device)
+        new = {"tm_shift": [], "cm_shift": [], "wkv": []}
     for i, lp in enumerate(params["layers"]):
-        att, tm_new, wkv_new = _time_mix(cfg, lp, L.rmsnorm(h, lp["ln1"]),
-                                         states["tm_shift"][i],
-                                         states["wkv"][i])
-        h = h + att
-        ffn, cm_new = _channel_mix(lp, L.rmsnorm(h, lp["ln2"]),
-                                   states["cm_shift"][i])
-        h = h + ffn
-        states["tm_shift"][i] = tm_new
-        states["cm_shift"][i] = cm_new
-        states["wkv"][i] = wkv_new
+        if fresh:
+            h, tm, cm, wkv = remat(cfg, functools.partial(_block, cfg, lp),
+                                   h, zero, zero, wkv0)
+            new["tm_shift"].append(tm)
+            new["cm_shift"].append(cm)
+            new["wkv"].append(wkv)
+        else:
+            h, tm, cm, wkv = _block(cfg, lp, h, states["tm_shift"][i],
+                                    states["cm_shift"][i], states["wkv"][i])
+            states["tm_shift"][i] = tm
+            states["cm_shift"][i] = cm
+            states["wkv"][i] = wkv
+    if fresh:
+        states = {k: torch.stack(v) for k, v in new.items()}
     h = L.rmsnorm(h, params["ln_f"])
     if last_only:
         h = h[:, -1:]
     logits = h @ params["embed"]["out"].to(h.dtype)
     return logits.float(), states
+
+
+def loss_fn(cfg, params, batch):
+    logits, _ = forward(cfg, params, batch["tokens"])
+    return cross_entropy(logits, batch["labels"])
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int):
@@ -167,6 +183,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         param_specs=functools.partial(param_specs, cfg),
+        loss_fn=functools.partial(loss_fn, cfg),
+        train_input_specs=lambda s: token_specs(s.global_batch, s.seq_len),
         prefill_fn=functools.partial(prefill_fn, cfg),
         decode_fn=functools.partial(decode_fn, cfg),
         cache_specs=functools.partial(cache_specs, cfg),

@@ -1,7 +1,8 @@
 """Decoder-only transformer: qwen2*, gemma*, mixtral/llama4 (MoE) and the
 llava backbone; gemma2's local/global alternation and softcaps. Port of
-``repro.models.transformer``'s serving half: a Python loop over the layers
-(one ``ParamTree`` per layer), nothing rematerialised.
+``repro.models.transformer``: a Python loop over the layers (one
+``ParamTree`` per layer), each layer rematerialised in backward under
+``cfg.remat`` when grad is on (training), as the JAX scan's body is.
 """
 from __future__ import annotations
 
@@ -9,10 +10,11 @@ import functools
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers as L
-from repro_torch.models.base import (ModelBundle, dtype_of, spec,
-                                     token_input_specs)
+from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
+                                     remat, spec, token_input_specs,
+                                     token_specs)
 
 
 def _flavor(cfg: ModelConfig, layer_local: bool) -> L.AttnFlavor:
@@ -81,9 +83,12 @@ def forward(cfg: ModelConfig, params, h, positions, caches=None,
     (L, B, T, K, h), written in place."""
     kv_chunk = kv_chunk or cfg.kv_chunk
     for i, lp in enumerate(params["layers"]):
-        cache = None if caches is None else (caches[0][i], caches[1][i])
-        h = _layer(cfg, lp, h, i, positions, cache, cache_slot, kv_positions,
-                   kv_chunk)
+        if caches is None:
+            h = remat(cfg, functools.partial(_layer, cfg, lp), h, i,
+                      positions, None, None, None, kv_chunk)
+        else:
+            h = _layer(cfg, lp, h, i, positions, (caches[0][i], caches[1][i]),
+                       cache_slot, kv_positions, kv_chunk)
     return L.rmsnorm(h, params["ln_f"]), caches
 
 
@@ -95,6 +100,34 @@ def _embed_batch(cfg, params, batch):
         patches = L.mm(batch["patches"].to(h.dtype), params["vision_proj"])
         h = torch.cat([patches, h], dim=1)      # cat promotes, as jnp does
     return h
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    h = _embed_batch(cfg, params, batch)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _ = forward(cfg, params, h, positions)
+    logits = L.unembed(params["embed"], h, cfg.logit_softcap,
+                       cfg.tie_embeddings)
+    labels = batch["labels"]
+    if cfg.family == "llava":   # image positions carry no next-token loss
+        pad = torch.full((labels.shape[0], cfg.n_image_tokens), -100,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return cross_entropy(logits, labels)
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    specs = token_specs(shape.global_batch, shape.seq_len)
+    if cfg.family == "llava":
+        specs["patches"] = spec(
+            (shape.global_batch, cfg.n_image_tokens, cfg.d_frontend),
+            torch.bfloat16)
+        # text tokens fill the remaining sequence budget
+        specs["tokens"] = spec(
+            (shape.global_batch, shape.seq_len - cfg.n_image_tokens),
+            torch.int32)
+        specs["labels"] = specs["tokens"]
+    return specs
 
 
 def _hidden(cfg: ModelConfig, params, batch, kv_chunk=0):
@@ -157,6 +190,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         param_specs=functools.partial(param_specs, cfg),
+        loss_fn=functools.partial(loss_fn, cfg),
+        train_input_specs=functools.partial(train_input_specs, cfg),
         prefill_fn=functools.partial(prefill_fn, cfg),
         decode_fn=functools.partial(decode_fn, cfg),
         cache_specs=functools.partial(cache_specs, cfg),

@@ -10,7 +10,9 @@ Served decode never runs the encoder, as in the JAX package: the decode
 cache's ``cross_k`` / ``cross_v`` are what ``greedy_generate`` allocates
 (zeros), and ``prefill_fn`` returns no cache. ``logits_fn`` is the decoder
 stack's full forward at that same state (an all-zero encoder output gives
-zero cross keys and values).
+zero cross keys and values). Training (``loss_fn``) runs the encoder on the
+batch's ``frames``; each encoder and decoder layer is rematerialised in
+backward under ``cfg.remat`` when grad is on.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ import math
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers as L
-from repro_torch.models.base import (ModelBundle, dtype_of, spec,
-                                     token_input_specs)
+from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
+                                     remat, spec, token_input_specs,
+                                     token_specs)
 
 
 def _fl(cfg, causal):
@@ -78,11 +81,15 @@ def encode(cfg: ModelConfig, params, frames):
     positions = torch.arange(h.shape[1], device=h.device)
     h = h + _sinusoid(positions, cfg.d_model).to(h.dtype)
     fl = _fl(cfg, False)
-    for lp in params["enc_layers"]:
+
+    def layer(lp, h):
         att, _ = L.attention(lp["attn"], L.rmsnorm(h, lp["ln1"]), fl,
                              positions=positions, kv_chunk=cfg.kv_chunk)
         h = h + att
-        h = h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+        return h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+
+    for lp in params["enc_layers"]:
+        h = remat(cfg, layer, lp, h)
     return L.rmsnorm(h, params["enc_ln_f"])
 
 
@@ -126,7 +133,8 @@ def decode_stack(cfg, params, tokens, positions, enc_h=None, caches=None,
     h = L.embed(params["embed"], tokens, cfg.d_model, False)
     h = h + _sinusoid(positions, cfg.d_model).to(h.dtype)[None, :, :]
     decode = caches is not None
-    for i, lp in enumerate(params["dec_layers"]):
+
+    def layer(i, lp, h):
         cache = ((caches["self_k"][i], caches["self_v"][i]) if decode
                  else None)
         att, _ = L.attention(
@@ -140,12 +148,32 @@ def decode_stack(cfg, params, tokens, positions, enc_h=None, caches=None,
             kv = _enc_kv(lp["cross_attn"], enc_h, fl_cross)
         h = h + _cross_attention(lp["cross_attn"], L.rmsnorm(h, lp["lnx"]),
                                  kv, fl_cross, kv_chunk=cfg.kv_chunk)
-        h = h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+        return h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+
+    for i, lp in enumerate(params["dec_layers"]):
+        h = layer(i, lp, h) if decode else remat(cfg, layer, i, lp, h)
     h = L.rmsnorm(h, params["ln_f"])
     if last_only:
         h = h[:, -1:]
     logits = h @ params["embed"]["tok"].T.to(h.dtype)
     return logits.float(), caches
+
+
+def loss_fn(cfg, params, batch):
+    enc_h = encode(cfg, params, batch["frames"])
+    tokens = batch["tokens"]
+    logits, _ = decode_stack(
+        cfg, params, tokens, torch.arange(tokens.shape[1], device=tokens.device),
+        enc_h=enc_h)
+    return cross_entropy(logits, batch["labels"])
+
+
+def train_input_specs(cfg, shape: ShapeConfig):
+    specs = token_specs(shape.global_batch, shape.seq_len)
+    specs["frames"] = spec(
+        (shape.global_batch, cfg.n_audio_frames, cfg.d_frontend),
+        torch.bfloat16)
+    return specs
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int):
@@ -195,6 +223,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         param_specs=functools.partial(param_specs, cfg),
+        loss_fn=functools.partial(loss_fn, cfg),
+        train_input_specs=functools.partial(train_input_specs, cfg),
         prefill_fn=functools.partial(prefill_fn, cfg),
         decode_fn=functools.partial(decode_fn, cfg),
         cache_specs=functools.partial(cache_specs, cfg),

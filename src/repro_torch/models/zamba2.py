@@ -5,7 +5,9 @@ per-segment KV caches). Port of ``repro.models.zamba2``.
 Mamba2 block: in_proj -> (z, x, B, C, dt); causal depthwise conv over
 (x,B,C) keeping K - 1 steps of state; per-head scalar decay exp(A*dt) with
 A = -exp(a_log) and dt = softplus(dt + dt_bias); state h (B, H, P, N)
-carried over time; y = C.h + D*x, gated by silu(z).
+carried over time; y = C.h + D*x, gated by silu(z). Each mamba block is
+rematerialised in backward under ``cfg.remat`` when grad is on (the JAX
+segment scan's body; the shared block is not).
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.base import (ModelBundle, dtype_of, spec,
-                                     token_input_specs)
+from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
+                                     remat, spec, token_input_specs,
+                                     token_specs)
 
 
 def _dims(cfg: ModelConfig):
@@ -149,10 +152,18 @@ def forward(cfg: ModelConfig, params, tokens, positions, states=None,
                 states["conv"][i][j] = nc
                 states["ssd"][i][j] = ns
             else:
-                h, _, _ = mamba_block(cfg, lp, h)
+                h = remat(cfg, lambda lp_, h_: mamba_block(cfg, lp_, h_)[0],
+                          lp, h)
     h = L.rmsnorm(h, params["ln_f"])
     logits = h @ params["embed"]["out"].to(h.dtype)
     return logits.float(), states
+
+
+def loss_fn(cfg, params, batch):
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    logits, _ = forward(cfg, params, tokens, positions)
+    return cross_entropy(logits, batch["labels"])
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int):
@@ -195,6 +206,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         param_specs=functools.partial(param_specs, cfg),
+        loss_fn=functools.partial(loss_fn, cfg),
+        train_input_specs=lambda s: token_specs(s.global_batch, s.seq_len),
         prefill_fn=functools.partial(prefill_fn, cfg),
         decode_fn=functools.partial(decode_fn, cfg),
         cache_specs=functools.partial(cache_specs, cfg),

@@ -8,7 +8,10 @@ centrality, label propagation) on the card against the CPU,
 k-hop and PageRank probes of ``distr.graph2d`` and ``any_pair`` on each
 storage kind; and the models' serving path: tiny models' prefill and
 decode on the card against the CPU (float32, atol 1e-4), in-place cache
-writes, and ``launch.serve`` on the card by default.
+writes, and ``launch.serve`` on the card by default; and the training
+path: train steps on the card against the CPU, remat on against off, the
+bfloat16 checkpoint round trip on card tensors, and ``launch.train`` on
+the card by default and raising without one.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -1610,3 +1613,135 @@ def test_serve_entry_point_runs_on_the_card_by_default():
     again = serve.main(["--arch", "qwen2-1.5b", "--batch", "2",
                         "--prompt-len", "4", "--max-new", "3"])
     assert torch.equal(again.tokens, res.tokens)
+
+
+# -- the models' training path -----------------------------------------------------
+TRAIN_ARCHS = ["qwen2-1.5b", "mixtral-8x7b", "rwkv6-3b", "zamba2-1.2b",
+               "whisper-medium", "llava-next-mistral-7b"]
+
+
+def _train_pair(name):
+    """A tiny model (the serve entry point's reduction, float32) from one
+    seeded init on the CPU, and its copy on the card, with a batch of the
+    synthetic stream for each."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch.serve import tiny_config
+    from repro_torch.models import get_model
+    from repro_torch.train.data import synthetic_batch, to_device
+    cfg = tiny_config(get_config(name))
+    model = get_model(cfg)
+    cpu, card = model.init(0, "cpu"), model.init(0, "cpu").to("cuda")
+    batches = [synthetic_batch(cfg, ShapeConfig("t", 8, 2, "train"), k)
+               for k in range(2)]
+    return cfg, model, cpu, card, batches, to_device
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_cpu(name, no_tf32):
+    """Two AdamW steps (qwen2 with microbatches and int8 compression) on the
+    card and on the CPU: each step's loss within 1e-4, the params within
+    1% of a step (lr 1e-3) a step, but for at most 1e-4 of them, each
+    within 2 lr a step: float32 with TF32 off, the sums ordered otherwise
+    on each device, and Adam's step m / sqrt(v) does not scale with the
+    gradient, so an element whose gradient is at rounding level steps by
+    that rounding (and under compression a gradient within rounding of a
+    half step of the scale may take the neighbouring int8 code)."""
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import make_train_step
+    cfg, model, cpu, card, batches, to_device = _train_pair(name)
+    kw = ({"microbatches": 2, "compress_grads": True}
+          if name == "qwen2-1.5b" else {})
+    opt = opt_mod.OptConfig(name=cfg.optimizer, lr=1e-3, warmup_steps=1,
+                            total_steps=2)
+    losses = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        step = make_train_step(model, opt, **kw)
+        state, err, losses[dev] = opt_mod.init_fn(cfg.optimizer)(params), \
+            None, []
+        for b in batches:
+            out = step(params, state, to_device(b, dev), *(
+                [err] if kw else []))
+            params, state, metrics = out[:3]
+            err = out[3] if kw else None
+            losses[dev].append(float(metrics["loss"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
+                               atol=1e-4)
+    d = torch.cat([(a.detach() - b.detach().cpu()).abs().flatten()
+                   for a, b in zip(tree_leaves(cpu), tree_leaves(card))])
+    assert card["ln_f"].is_cuda
+    past = int((d > 0.01 * 1e-3 * 2).sum())
+    assert past <= 1e-4 * d.numel()
+    assert float(d.max()) <= 2 * 1e-3 * 2
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "rwkv6-3b", "zamba2-1.2b",
+                                  "whisper-medium"])
+def test_remat_on_the_card_matches_no_remat(name, no_tf32):
+    """Loss and grads with every layer rematerialised equal those without,
+    on the card: the recompute runs the same kernels on the same inputs
+    (held within 1e-6 of each leaf's largest value, since backward's
+    atomic adds may order a sum otherwise)."""
+    import dataclasses
+    from repro_torch.models import get_model
+    from repro_torch.models.base import tree_leaves
+    cfg, _, _, card, batches, to_device = _train_pair(name)
+    b = to_device(batches[0], "cuda")
+    out = []
+    for remat in (True, False):
+        model = get_model(dataclasses.replace(cfg, remat=remat))
+        card.requires_grad_(True)
+        loss = model.loss_fn(card, b)
+        out.append((loss.detach(), torch.autograd.grad(loss,
+                                                       tree_leaves(card))))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b_ in zip(out[0][1], out[1][1]):
+        assert a.is_cuda
+        assert float((a - b_).abs().max()) <= 1e-6 * float(b_.abs().max())
+
+
+def test_bfloat16_checkpoint_round_trip_on_the_card(tmp_path):
+    """bfloat16 params and float32 AdamW state on the card through a
+    checkpoint into a fresh tree on the card: bit for bit."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import tiny_config
+    from repro_torch.models import get_model
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    cfg = dataclasses.replace(tiny_config(get_config("qwen2-1.5b")),
+                              dtype="bfloat16")
+    model = get_model(cfg)
+    params = model.init(0, "cuda")
+    state = opt_mod.adamw_init(params)
+    for t in tree_leaves(state["m"]):
+        t.normal_()
+    state["step"] = torch.tensor(7, dtype=torch.int32)
+    w = ckpt.AsyncCheckpointer(str(tmp_path))
+    w.save((params, state), 7)
+    w.wait()
+    fresh = model.init(1, "cuda")
+    fresh_state = opt_mod.adamw_init(fresh)
+    _, step = ckpt.restore((fresh, fresh_state), str(tmp_path))
+    assert step == 7 and int(fresh_state["step"]) == 7
+    assert fresh["embed"]["tok"].dtype == torch.bfloat16
+    for a, b in zip(tree_leaves((params, state)),
+                    tree_leaves((fresh, fresh_state))):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+def test_train_entry_point_runs_on_the_card_by_default():
+    from repro_torch.launch import train
+    run = train.run(["--steps", "3", "--batch", "2", "--seq", "8"])
+    assert len(run.losses) == 3 and np.isfinite(run.losses).all()
+    assert run.params["ln_f"].is_cuda
+
+
+def test_train_entry_point_raises_without_a_card(monkeypatch):
+    """Asked for ``cuda`` (the default) on a host without a card, the entry
+    point raises and never trains on the host."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main(["--steps", "1", "--device", "cuda"])

@@ -146,8 +146,10 @@ def test_init_is_seeded_and_follows_the_jax_rule():
     assert any(not torch.equal(pa[k], pc[k]) for k in pa if pa[k].ndim > 1)
     for k, v in pa.items():
         assert not v.requires_grad
-        if v.ndim <= 1:
-            assert not v.any(), k                 # gains and biases zero
+        # the JAX rule reads the stacked rank: a per-layer vector is (L, D)
+        # there and drawn, only an unstacked one (ln_f) is zero
+        stacked = any(part.isdigit() for part in k.split("."))
+        assert bool(v.any()) == (v.ndim + stacked > 1), k
     big = torch.cat([v.flatten() for v in pa.values() if v.ndim > 1])
     assert abs(float(big.std()) - 0.02) < 1e-3
     assert a["segments"][1][0]["in_proj"].shape == (64, 2 * 128 + 2 * 8 + 4)
