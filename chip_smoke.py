@@ -144,6 +144,18 @@ Phases, each printing one JSON line:
             from both (uninterrupted and resumed losses compared); losses,
             ms a step, tokens/s against the step's bound, peak memory, and
             one step under ``torch.profiler`` (launches, device-busy ms)
+  train_mesh  the models on the mesh (``train_mesh_cells``; no TPU kernel
+            lies on it): that checkpoint restored onto ("data", "model")
+            = (2, 16) of the card's positions, its gather against the
+            manifest's sha1s, each position's bytes against the dry-run's,
+            one sharded step against the unsharded step with 2
+            microbatches; a worker's heartbeats stop (``RestartPolicy``
+            under a fake clock), ``plan_restart`` gives (1, 16), and the
+            same restore and step there; restore seconds, step ms,
+            collectives, bytes a position, the differences
+  dryrun_models  ``launch.dryrun --all --mesh both`` on meta positions,
+            every cell ok, qwen2-1.5b's train cell on each ``train_mesh``
+            mesh equal to the bytes placed there
 
 then the kernels line (the word kernels' rows with their launches under
 the mesh, ``mesh_launches``, and their rows at a position's local shapes
@@ -287,6 +299,10 @@ TRAIN_STEPS = 12
 # resumed losses against the uninterrupted run's, relative (the reason is
 # with train_cells)
 TRAIN_RESUME_RTOL = 1e-3
+# the mesh phase (train_mesh): train_qwen2's state on a ("data", "model")
+# mesh of the card's positions, workers of TRAIN_MESH_WORKER positions
+TRAIN_MESH = (2, 16)
+TRAIN_MESH_WORKER = 8
 # bfloat16 decode against one forward: the largest logit difference over
 # the largest logit (the reason is with model_cells)
 BF16_REL_TOL = 0.05
@@ -4238,83 +4254,382 @@ def train_cells(torch, h):
                 leaves, tree_leaves((fresh, fresh_state))))
         check(equal, "train_qwen2: the restored state differs from the "
               "saved one")
+        # the last steps of the same schedule, from the saved state and from
+        # the restored one
+        step_fn = make_train_step(model, train.opt_config(cfg, train.parse_args(
+            argv + ["--steps", str(TRAIN_STEPS)])))
+        shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+        def last_steps(p, st):
+            """The steps' losses and seconds, and each batch's loss after its
+            own step."""
+            out, secs, after = [], [], []
+            for k in range(TRAIN_SAVED_AT, TRAIN_STEPS):
+                b = to_device(synthetic_batch(cfg, shape, k), DEVICE)
+                (p, st, m), sec = sync_s(lambda: step_fn(p, st, b))
+                out.append(float(m["loss"]))
+                secs.append(sec)
+                with torch.no_grad():
+                    after.append(float(model.loss_fn(p, b)))
+            return out, secs, after
+
+        run_losses, run_s = run.losses, run.step_s
+        kept, kept_s, kept_after = last_steps(params, state)
+        del run, params, state, leaves
+        h.release()
+        resumed, resumed_s, resumed_after = last_steps(fresh, fresh_state)
+        resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, kept))
+        check(all(np.isfinite(resumed)) and resume_rel <= TRAIN_RESUME_RTOL,
+              f"train_qwen2: resumed losses {resumed} against {kept} "
+              f"(rtol {TRAIN_RESUME_RTOL})")
+        check(all(np.isfinite(kept_after + resumed_after)) and all(
+            a < b for a, b in zip(kept_after + resumed_after, kept + resumed)),
+              f"train_qwen2: a step did not lower its own batch's loss: "
+              f"{kept + resumed} -> {kept_after + resumed_after}")
+        # one more step under the profiler: its kernels' device time
+        b = to_device(synthetic_batch(cfg, shape, TRAIN_STEPS), DEVICE)
+        busy_ms = launches = None
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, prof_s = sync_s(lambda: step_fn(fresh, fresh_state, b))
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            busy_ms = sum(e.self_device_time_total
+                          if hasattr(e, "self_device_time_total")
+                          else e.self_cuda_time_total for e in kernels) / 1e3
+            launches = len(kernels)
+        # the steady steps: all but the run's first (which warms the card up)
+        steady_ms = 1e3 * float(np.median(run_s[1:] + kept_s + resumed_s))
+        h.emit_phase(
+            phase="train_qwen2", card=card, arch=cfg.name, dtype=cfg.dtype,
+            optimizer=cfg.optimizer, remat=cfg.remat, layers=cfg.n_layers,
+            d_model=cfg.d_model, vocab=cfg.vocab, params=n_params,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, tokens_per_step=tokens,
+            losses=run_losses + kept, resumed_losses=resumed,
+            first_loss=run_losses[0], last_loss=kept[-1],
+            batch_loss_after_its_step=kept_after,
+            resumed_batch_loss_after_its_step=resumed_after,
+            resume_rel_err=resume_rel, resume_rtol=TRAIN_RESUME_RTOL,
+            step_ms=[1e3 * x for x in run_s + kept_s],
+            resumed_step_ms=[1e3 * x for x in resumed_s],
+            steady_step_ms=steady_ms, tokens_per_s=tokens / (steady_ms / 1e3),
+            step_ops=nops, step_bound_ms=bound_ms, step_bound_by=bound_by,
+            step_over_bound=steady_ms / bound_ms, peak_run_gb=peak_run_gb,
+            state_bytes=state_bytes, checkpoint_bytes=ck_bytes,
+            checkpoint_host_copy_s=host_s, checkpoint_write_s=write_s,
+            restore_s=restore_s, disk_free_gb=free / 1e9,
+            restored_bit_for_bit=equal, profiled_step_wall_ms=1e3 * prof_s,
+            step_device_busy_ms=busy_ms, step_kernel_launches=launches,
+            device_idle_share=None if busy_ms is None
+            else 1 - busy_ms / steady_ms, elapsed_s=time.perf_counter() - t0)
+        # the mesh phase restores the checkpoint and steps from the
+        # state train_qwen2 restored (it owns them from here: no other
+        # name may hold them, the restore's and the profiled step's
+        # results included)
+        ref = [fresh, fresh_state]
+        del fresh, fresh_state, prof, _
+        h.release()
+        placed = train_mesh_cells(torch, h, ckdir, ref, argv)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
-
-    # the last steps of the same schedule, from the saved state and from
-    # the restored one
-    step_fn = make_train_step(model, train.opt_config(cfg, train.parse_args(
-        argv + ["--steps", str(TRAIN_STEPS)])))
-    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
-
-    def last_steps(p, st):
-        """The steps' losses and seconds, and each batch's loss after its
-        own step."""
-        out, secs, after = [], [], []
-        for k in range(TRAIN_SAVED_AT, TRAIN_STEPS):
-            b = to_device(synthetic_batch(cfg, shape, k), DEVICE)
-            (p, st, m), sec = sync_s(lambda: step_fn(p, st, b))
-            out.append(float(m["loss"]))
-            secs.append(sec)
-            with torch.no_grad():
-                after.append(float(model.loss_fn(p, b)))
-        return out, secs, after
-
-    run_losses, run_s = run.losses, run.step_s
-    kept, kept_s, kept_after = last_steps(params, state)
-    del run, params, state, leaves
-    h.release()
-    resumed, resumed_s, resumed_after = last_steps(fresh, fresh_state)
-    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, kept))
-    check(all(np.isfinite(resumed)) and resume_rel <= TRAIN_RESUME_RTOL,
-          f"train_qwen2: resumed losses {resumed} against {kept} "
-          f"(rtol {TRAIN_RESUME_RTOL})")
-    check(all(np.isfinite(kept_after + resumed_after)) and all(
-        a < b for a, b in zip(kept_after + resumed_after, kept + resumed)),
-          f"train_qwen2: a step did not lower its own batch's loss: "
-          f"{kept + resumed} -> {kept_after + resumed_after}")
-    # one more step under the profiler: its kernels' device time
-    b = to_device(synthetic_batch(cfg, shape, TRAIN_STEPS), DEVICE)
-    busy_ms = launches = None
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, prof_s = sync_s(lambda: step_fn(fresh, fresh_state, b))
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if kernels:
-        busy_ms = sum(e.self_device_time_total
-                      if hasattr(e, "self_device_time_total")
-                      else e.self_cuda_time_total for e in kernels) / 1e3
-        launches = len(kernels)
-    # the steady steps: all but the run's first (which warms the card up)
-    steady_ms = 1e3 * float(np.median(run_s[1:] + kept_s + resumed_s))
-    h.emit_phase(
-        phase="train_qwen2", card=card, arch=cfg.name, dtype=cfg.dtype,
-        optimizer=cfg.optimizer, remat=cfg.remat, layers=cfg.n_layers,
-        d_model=cfg.d_model, vocab=cfg.vocab, params=n_params,
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, tokens_per_step=tokens,
-        losses=run_losses + kept, resumed_losses=resumed,
-        first_loss=run_losses[0], last_loss=kept[-1],
-        batch_loss_after_its_step=kept_after,
-        resumed_batch_loss_after_its_step=resumed_after,
-        resume_rel_err=resume_rel, resume_rtol=TRAIN_RESUME_RTOL,
-        step_ms=[1e3 * x for x in run_s + kept_s],
-        resumed_step_ms=[1e3 * x for x in resumed_s],
-        steady_step_ms=steady_ms, tokens_per_s=tokens / (steady_ms / 1e3),
-        step_ops=nops, step_bound_ms=bound_ms, step_bound_by=bound_by,
-        step_over_bound=steady_ms / bound_ms, peak_run_gb=peak_run_gb,
-        state_bytes=state_bytes, checkpoint_bytes=ck_bytes,
-        checkpoint_host_copy_s=host_s, checkpoint_write_s=write_s,
-        restore_s=restore_s, disk_free_gb=free / 1e9,
-        restored_bit_for_bit=equal, profiled_step_wall_ms=1e3 * prof_s,
-        step_device_busy_ms=busy_ms, step_kernel_launches=launches,
-        device_idle_share=None if busy_ms is None
-        else 1 - busy_ms / steady_ms, elapsed_s=time.perf_counter() - t0)
-    del fresh, fresh_state, prof
-    h.release()
+    dryrun_model_cells(torch, h, placed)
     h.emit_phase(phase="train_total", card=card,
                  elapsed_s=time.perf_counter() - t_all)
+
+def train_mesh_cells(torch, h, ckdir, ref, argv):
+    """``train_mesh``: qwen2-1.5b's training state on a ("data", "model")
+    mesh of the card's positions (``distr.sharding``, ``distr.shardctx``,
+    the sharded ``train.train_step``, ``train.checkpoint.restore(shardings=,
+    mesh=)``, ``launch.elastic``). No TPU kernel lies on it: the JAX
+    package places and steps its models through XLA.
+
+    From ``train_qwen2``'s checkpoint (step TRAIN_SAVED_AT) and its
+    restored state (``ref``: params and AdamW state, which this phase
+    owns), under deterministic algorithms: the checkpoint restored onto
+    TRAIN_MESH (32 positions, four simulated workers of 8), its gather
+    held to the manifest's sha1 of every leaf, each position's bytes to
+    the dry-run's accounting; the reference: ``ref`` set to that
+    placement's leaves (so to the checkpoint) and stepped unsharded with
+    microbatches = 2 on the step's 8 x 1,024-token batch, its result then
+    moved to the host; one sharded step with one microbatch a data block
+    (the same two 4 x 1,024 gradients, summed in float32 in the same
+    order), its collectives to the dry-run's; then a fleet of four workers
+    under a fake clock, one of which stops beating: ``plan_restart`` must
+    give (1, 16), the checkpoint restored onto it and stepped with
+    microbatches = 2. Each mesh's step against the reference and the two
+    meshes' against each other: the loss, the gradient norm, and every
+    param and moment within ``train_parity``'s bounds (per element within
+    2 lr, or for a bfloat16 param one unit in its last place: its float32
+    update differs in the last bits where the norm's sums run per block,
+    and may round to the neighbouring bfloat16 value; the count past 0.01
+    lr printed, at most 1e-4 of them), the largest differences printed.
+    Returns the bytes each position held, by mesh."""
+    import warnings
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.distr import sharding as sh
+    from repro_torch.distr.mesh import Mesh
+    from repro_torch.distr.shardctx import ShardCtx, use
+    from repro_torch.launch import dryrun, elastic, train
+    from repro_torch.models import get_model, jax_leaves
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.data import synthetic_batch, to_device
+    from repro_torch.train.train_step import make_train_step
+    card = h.card
+    t_all = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    opt_cfg = train.opt_config(cfg, train.parse_args(
+        argv + ["--steps", str(TRAIN_STEPS)]))
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = to_device(synthetic_batch(cfg, shape, TRAIN_SAVED_AT), DEVICE)
+    with open(os.path.join(ckdir, f"step_{TRAIN_SAVED_AT}",
+                           "manifest.json")) as f:
+        sha1s = [m["sha1"] for m in json.load(f)["leaves"]]
+    like = (model.param_specs(),
+            opt_mod.adamw_init(sh.as_meta(model.param_specs())))
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def whole_leaves(tree, device):
+        """Each JAX leaf of a tree (placed or not) whole on ``device``, one
+        at a time."""
+        for _, ts, stacked in jax_leaves(tree):
+            out = torch.empty(((len(ts),) if stacked else ())
+                              + tuple(ts[0].shape), dtype=ts[0].dtype,
+                              device=device)
+            for i, t in enumerate(ts):
+                ckpt._copy_into(out[i] if stacked else out, t)
+            yield out
+
+    def sha1s_of(tree):
+        """The sha1 of each JAX leaf's bytes, as the manifest states them."""
+        with ckpt._pool() as pool:
+            return list(pool.map(lambda x: ckpt._sha1(ckpt.host_array(x)),
+                                 whole_leaves(tree, "cpu")))
+
+    def compare(tree, other, lr):
+        """A placed tree's leaves against another tree's (placed, or host
+        tensors), leaf by leaf on the card: the largest difference, the
+        count of elements past 0.01 lr, the element count, whether every
+        one is equal, and the elements past 2 lr: a bfloat16 param whose
+        float32 update differs in its last bits may round to the
+        neighbouring bfloat16 value, one unit in the last place of it
+        (``ulp_flips`` counts those, ``past_bound`` any other)."""
+        worst, past, numel, equal, flips, beyond = 0.0, 0, 0, True, 0, 0
+        want = (iter(other) if isinstance(other, list)
+                else whole_leaves(other, DEVICE))
+        for a, b in zip(whole_leaves(tree, DEVICE), want):
+            b = b.to(DEVICE)
+            d = (a.float() - b.float()).abs()
+            worst = max(worst, float(d.max()))
+            past += int((d > 0.01 * lr).sum())
+            numel += d.numel()
+            equal &= bool(torch.equal(a, b))
+            far = d > 2 * lr
+            if b.dtype == torch.bfloat16 and bool(far.any()):
+                mag = torch.maximum(a.float().abs(), b.float().abs())
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    torch.clamp(mag, min=1e-30))) - 7)
+                flip = far & (d <= ulp)
+                flips += int(flip.sum())
+                far &= ~flip
+            beyond += int(far.sum())
+            del a, b, d, far
+        return {"max_abs_err": worst, "past_0.01lr": past, "elements": numel,
+                "bit_for_bit": equal, "ulp_flips": flips,
+                "past_bound": beyond}
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    caught = warnings.catch_warnings(record=True)
+    seen = caught.__enter__()
+    warnings.simplefilter("always")
+    def reference(P, St):
+        """train_qwen2's restored state set to the checkpoint from the
+        placement just held to it (its leaves copied in), stepped unsharded
+        with microbatches = 2, its result moved to the host."""
+        ref_p, ref_s = ref
+        mine, placed = tree_leaves((ref_p, ref_s)), tree_leaves((P, St))
+        check([tuple(t.shape) for t in mine] == [x.shape for x in placed],
+              "train_mesh: the reference's leaves are not the placement's")
+        with torch.no_grad():
+            _, set_s = sync_s(lambda: [sh.gather_leaf(x, out=t)
+                                       for t, x in zip(mine, placed)])
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, rm), step_s = sync_s(lambda: make_train_step(
+            model, opt_cfg, microbatches=2)(ref_p, ref_s, batch))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        host = list(whole_leaves((ref_p, ref_s), "cpu"))
+        ref.clear()
+        return rm, host, dict(set_s=set_s, step_ms=1e3 * step_s,
+                              peak_gb=peak_gb)
+
+    try:
+        # -- the meshes: restore, check, step (the reference before the
+        # first step) ----------------------------------------------------------
+        rm = None
+        policy_t = [0.0]
+        policy = elastic.RestartPolicy(timeout_s=60.0,
+                                       clock=lambda: policy_t[0])
+        workers = [f"w{i}" for i in range(TRAIN_MESH[0] * TRAIN_MESH[1]
+                                          // TRAIN_MESH_WORKER)]
+        for w in workers:
+            policy.heartbeat(w, 1.0)
+        rows, placed_bytes, stepped = {}, {}, {}
+        plan = None
+        for shape_, mb in ((TRAIN_MESH, 1), (None, 2)):
+            if shape_ is None:      # a worker stops beating: re-plan
+                policy_t[0] = 30.0
+                for w in workers[:-1]:
+                    policy.heartbeat(w, 1.0)
+                policy_t[0] = 90.0
+                check(policy.should_restart()
+                      and policy.dead_workers() == [workers[-1]],
+                      f"train_mesh: dead workers {policy.dead_workers()}")
+                plan = policy.plan_restart(
+                    chips_per_worker=TRAIN_MESH_WORKER)
+                check(plan == ((1, 16), ("data", "model")),
+                      f"train_mesh: plan_restart gave {plan}")
+                shape_ = plan[0]
+            name = "x".join(map(str, shape_))
+            mesh = Mesh(np.full(shape_, torch.device(DEVICE),
+                                dtype=object), ("data", "model"))
+            specs = (sh.param_shardings(like[0], mesh, cfg.vocab),
+                     sh.opt_state_shardings(like[1], mesh, cfg.vocab))
+            torch.cuda.reset_peak_memory_stats()
+            ((P, St), at), restore_s = sync_s(lambda: ckpt.restore(
+                like, ckdir, TRAIN_SAVED_AT, shardings=specs, mesh=mesh))
+            check(at == TRAIN_SAVED_AT, f"train_mesh {name}: step {at}")
+            t0 = time.perf_counter()
+            got = sha1s_of((P, St))
+            gather_check_s = time.perf_counter() - t0
+            check(got == sha1s, f"train_mesh {name}: the placed state does "
+                  f"not gather to the checkpoint")
+            Bt, place_s = sync_s(lambda: sh.place(
+                batch, sh.batch_shardings(batch, mesh), mesh))
+            held = [sh.position_bytes((P, St, Bt), pos)
+                    for pos in range(mesh.size)]
+            lay = dryrun.model_layout(
+                dataclasses.replace(cfg, microbatches=mb), shape, mesh,
+                activations=False)
+            check(set(held) == {lay["argument_bytes_per_position"]},
+                  f"train_mesh {name}: positions hold {min(held)}-"
+                  f"{max(held)} bytes, the dry-run "
+                  f"{lay['argument_bytes_per_position']}")
+            placed_bytes[name] = held
+            if rm is None:
+                rm, host_ref, ref_row = reference(P, St)
+                lr = float(rm["lr"])
+                h.release()
+            torch.cuda.reset_peak_memory_stats()
+            step = make_train_step(model, opt_cfg, microbatches=mb)
+            with use(ShardCtx(mesh)):
+                (P, St, m), step_s = sync_s(lambda: step(P, St, Bt))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            check(m["collectives"] == lay["collectives"],
+                  f"train_mesh {name}: collectives {m['collectives']} "
+                  f"against the dry-run's {lay['collectives']}")
+            res = compare((P, St), host_ref, lr)
+            rows[name] = dict(
+                mesh=list(shape_), microbatches=mb, positions=mesh.size,
+                restore_s=restore_s, gather_check_s=gather_check_s,
+                batch_place_s=place_s, step_ms=1e3 * step_s,
+                loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                loss_err=abs(float(m["loss"]) - float(rm["loss"])),
+                grad_norm_err=abs(float(m["grad_norm"])
+                                  - float(rm["grad_norm"])),
+                against_reference=res, collectives=m["collectives"],
+                bytes_per_position_max=max(held),
+                bytes_per_position_min=min(held), peak_gb=peak_gb)
+            allowed = int(1e-4 * res["elements"])
+            check(rows[name]["loss_err"] <= 1e-5
+                  and res["past_bound"] == 0
+                  and res["past_0.01lr"] <= allowed,
+                  f"train_mesh {name}: against the unsharded step {res}, "
+                  f"loss {rows[name]['loss_err']} (allowed {allowed} past)")
+            if stepped:
+                between = compare((P, St), stepped.popitem()[1], lr)
+            else:
+                stepped[name] = (P, St)
+            del P, St, Bt, m
+            h.release()
+        check(between["past_bound"] == 0
+              and between["past_0.01lr"] <= int(1e-4 * between["elements"]),
+              f"train_mesh: the two meshes' steps differ: {between}")
+    finally:
+        caught.__exit__(None, None, None)
+        torch.use_deterministic_algorithms(prev)
+    nondet = sorted({str(w.message).split(".")[0][:160] for w in seen
+                     if "deterministic" in str(w.message)})
+    h.emit_phase(
+        phase="train_mesh", card=card, arch=cfg.name, dtype=cfg.dtype,
+        optimizer=cfg.optimizer, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        step=TRAIN_SAVED_AT, lr=lr, reference_microbatches=2,
+        reference_loss=float(rm["loss"]),
+        reference_grad_norm=float(rm["grad_norm"]),
+        reference_set_s=ref_row["set_s"],
+        reference_step_ms=ref_row["step_ms"],
+        reference_peak_gb=ref_row["peak_gb"],
+        meshes=rows, between_meshes=between, plan_restart=plan,
+        workers=len(workers), chips_per_worker=TRAIN_MESH_WORKER,
+        nondeterministic_ops=nondet, elapsed_s=time.perf_counter() - t_all)
+    return placed_bytes
+
+
+def dryrun_model_cells(torch, h, placed_bytes):
+    """``dryrun_models``: ``launch.dryrun --all --mesh both`` (every arch x
+    shape x production mesh on meta positions; nothing allocated), each
+    cell ok; then qwen2-1.5b's train cell re-run on each mesh
+    ``train_mesh`` placed, with its batch, against the bytes each position
+    held there."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.distr.mesh import Mesh
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix=".dryrun_", dir=ROOT)
+    try:
+        rc = dryrun.main(["--all", "--mesh", "both", "--out", out])
+        cells = [json.load(open(os.path.join(out, n)))
+                 for n in sorted(os.listdir(out))]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    bad = [c["cell"] for c in cells if c["status"] != "ok"]
+    check(rc == 0 and not bad, f"dryrun_models: cells not ok: {bad}")
+    cells_s = time.perf_counter() - t0
+    cfg = get_config("qwen2-1.5b")
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    held = {}
+    for name, got in placed_bytes.items():
+        dims = tuple(int(x) for x in name.split("x"))
+        mesh = Mesh(np.full(dims, torch.device("meta"), dtype=object),
+                    ("data", "model"))
+        lay = dryrun.model_layout(cfg, shape, mesh, activations=False)
+        held[name] = {"dryrun": lay["argument_bytes_per_position"],
+                      "placed_min": min(got), "placed_max": max(got),
+                      "parts": lay["argument_parts"]}
+        check(set(got) == {lay["argument_bytes_per_position"]},
+              f"dryrun_models {name}: {held[name]}")
+    q = {c["mesh"]: {k: c[k] for k in (
+        "argument_bytes_per_position", "collective_bytes_per_device",
+        "layout_bytes_per_position", "fits_hbm")}
+        for c in cells if c["arch"] == cfg.name and c["shape"] == "train_4k"}
+    h.emit_phase(phase="dryrun_models", card=h.card, cells=len(cells),
+                 archs=len({c["arch"] for c in cells}), cells_s=cells_s,
+                 fits=sum(c["fits_hbm"] for c in cells),
+                 qwen2_train_4k=q, train_mesh_held=held,
+                 elapsed_s=time.perf_counter() - t0)
+
 
 if __name__ == "__main__":
     if "--seed" in sys.argv:

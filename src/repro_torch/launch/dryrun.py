@@ -1,6 +1,30 @@
-"""The graph dry-run: layout accounting of the paper's workload cells.
+"""The dry-run: layout accounting of the model cells and of the paper's
+graph workload cells. Port of ``repro.launch.dryrun``.
 
-Port of the graph half of ``repro.launch.dryrun``. Each cell is one probe
+The model cells: every (arch x ``shapes_for(cfg)`` x mesh) cell but the
+arch's ``skip_shapes``, on a production mesh (``launch.mesh``) of meta
+positions, with the JAX package's policy (``distr.sharding``,
+``distr.shardctx``). Each cell writes one JSON with, per position:
+
+  * the argument bytes: params, optimizer state (train), batch, caches and
+    the position scalar (decode), each leaf's block under its spec;
+  * the output bytes: the metrics (train; params and state alias their
+    inputs, as the JAX step donates them), the last position's logits
+    (prefill), the next tokens (decode; the caches alias theirs);
+  * the collective bytes by kind under the port's schedule
+    (``train.train_step.step_collectives`` for train; the params gathered
+    for compute, and a decode's cache gathered over its non-data axes, for
+    serving), in the per-device convention of ``collective_stats``;
+  * the whole params (and a decode's whole cache per data block) that the
+    schedule gathers for compute, and a train step's gradient blocks;
+  * the activation layouts the shard context logged (``(logical axes,
+    shape, spec)``, each distinct one once) from one forward on meta
+    tensors at the cell's shapes, the stacks cut to one layer each (every
+    layer logs the same);
+  * ``fits``: arguments, outputs not aliased, the gathered params and
+    gradient blocks against one card's memory (activations not counted).
+
+The graph cells: each is one probe
 of ``distr.graph2d`` (PageRank, or k-hop in the int8, bitmap and bitmap +
 sentinel forms) on one of the paper's two graphs (``configs.graph500``,
 ``configs.twitter``) over a production mesh (``launch.mesh``): one pod of
@@ -19,19 +43,24 @@ positions. Each cell writes one JSON with, per position:
     memory (``torch.cuda`` when a card is present, else an H100's 80 GB,
     named so in the record).
 
-XLA's ``memory_analysis`` / ``cost_analysis`` have no torch counterpart,
-and no roofline time is stated: the TPU constants of the JAX module do
-not carry over and no multi-card measurement exists. The model cells of
-the JAX dry-run are not ported (``--arch`` / ``--all`` raise).
+XLA's ``memory_analysis`` / ``cost_analysis`` (``mem_stats``,
+``cost_stats``) have no torch counterpart, and no roofline time is stated
+(``roofline``): the TPU constants of the JAX module do not carry over and
+no multi-card measurement exists. ``collective_stats``, the HLO text
+parser, is kept for reading the JAX package's modules.
 
 Usage:
+  python -m repro_torch.launch.dryrun --arch qwen2-1.5b --mesh both --out DIR
+  python -m repro_torch.launch.dryrun --all --mesh both --out DIR
   python -m repro_torch.launch.dryrun --graph --mesh both --out DIR
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import re
 import sys
 import time
 
@@ -39,12 +68,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs import graph500, twitter
+from repro_torch.configs.base import (ARCHS, SHAPES, get_config,
+                                      shapes_for)
 from repro_torch.core.bitmap import n_words
 from repro_torch.core.shard import frontier_spec
 from repro_torch.distr import graph2d
 from repro_torch.distr import mesh as M
+from repro_torch.distr import sharding as sh
 from repro_torch.distr.mesh import Mesh
+from repro_torch.distr.shardctx import ShardCtx, use
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import get_model
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.train.train_step import layouts, step_collectives
 
 H100_BYTES = 80e9     # an H100's device memory (data sheet), without a card
 
@@ -53,6 +89,34 @@ GRAPH_CELLS = {cfg["name"]: (cfg["n_vertices"], cfg["max_deg"],
                              cfg["queries"], cfg["k"])
                for cfg in (graph500.GRAPH_CONFIG, twitter.GRAPH_CONFIG)}
 PAGERANK_ITERS = 10
+
+
+_COLL = re.compile(
+    r"(\w+)\[([\d,]*)\]\S*\s+(all-gather|all-reduce|reduce-scatter|"
+    r"all-to-all|collective-permute)", re.IGNORECASE)
+_DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s64": 8, "u64": 8,
+                "s32": 4, "u32": 4, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
+                "pred": 1, "f8e4m3fn": 1, "f8e5m2": 1}
+
+
+def collective_stats(hlo_text: str):
+    """Sum result-buffer bytes of every collective op in partitioned HLO
+    text (per-device convention): (total, {kind: {"count", "bytes"}})."""
+    by_kind = {}
+    total = 0
+    for m in _COLL.finditer(hlo_text):
+        dt, dims, kind = m.group(1), m.group(2), m.group(3).lower()
+        sz = _DTYPE_BYTES.get(dt, 4)
+        n = 1
+        for d in dims.split(","):
+            if d:
+                n *= int(d)
+        b = n * sz
+        e = by_kind.setdefault(kind, {"count": 0, "bytes": 0})
+        e["count"] += 1
+        e["bytes"] += b
+        total += b
+    return total, by_kind
 
 
 def khop_kind(packed: bool, sentinel: bool) -> str:
@@ -180,6 +244,199 @@ def run_pagerank_cell(name: str, multi_pod: bool, outdir: str,
                  lambda mesh: pagerank_layout(mesh, n, max_deg, iters))
 
 
+# -- the model cells -----------------------------------------------------------------
+_ACCUM = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_LOGGED = {}        # (arch, shape, decode pos) -> the forward's annotations
+
+
+def _one_layer(cfg):
+    """``cfg`` with each layer stack cut to one layer (zamba2: one mamba
+    block in each of two segments, so the shared block runs twice)."""
+    kw = {"n_layers": 1}
+    if cfg.family == "whisper":
+        kw["encoder_layers"] = 1
+    if cfg.family == "zamba2":
+        kw = {"n_layers": 2, "shared_attn_every": 1}
+    return dataclasses.replace(cfg, **kw)
+
+
+def _annotations(cfg, shape):
+    """``[(logical axes, shape)]`` of one forward of the cell on meta
+    tensors (stacks cut to one layer), in call order."""
+    key = (cfg.name, shape.name, shape.seq_len, shape.global_batch)
+    if key not in _LOGGED:
+        c = _one_layer(cfg)
+        model = get_model(c)
+        params = sh.as_meta(model.param_specs())
+        rec = ShardCtx(_as_meta(Mesh(np.array([torch.device("meta")],
+                                               dtype=object), ("model",))))
+        with use(rec), torch.no_grad():
+            if shape.kind == "train":
+                model.loss_fn(params, sh.as_meta(model.train_input_specs(
+                    shape)))
+            elif shape.kind == "prefill":
+                b = sh.as_meta(model.train_input_specs(shape))
+                b.pop("labels", None)
+                model.prefill_fn(params, b)
+            else:
+                caches = sh.as_meta(model.cache_specs(shape.global_batch,
+                                                      shape.seq_len))
+                model.decode_fn(params, caches, sh.as_meta(
+                    model.decode_input_specs(shape)), 0)
+        _LOGGED[key] = [(lg, s) for lg, s, _ in rec.log]
+    return _LOGGED[key]
+
+
+def activation_layouts(cfg, shape, mesh, rules=None) -> list:
+    """The distinct ``(logical axes, shape, spec)`` a forward of the cell
+    logs under ``ShardCtx(mesh, rules)``, in order of first appearance."""
+    ctx = ShardCtx(mesh, rules=rules)
+    out = []
+    for lg, s in _annotations(cfg, shape):
+        if any(ctx.rules.get(l) == "skip" for l in lg if l):
+            continue
+        e = [list(lg), list(s), [list(a) if isinstance(a, tuple) else a
+                                 for a in ctx.pspec(s, *lg)]]
+        if e not in out:
+            out.append(e)
+    return out
+
+
+def whole_of(t) -> int:
+    return int(np.prod(t.shape or (1,))) * t.element_size()
+
+
+def model_layout(cfg, shape, mesh, seq_to_model: bool = True, rules=None,
+                 activations: bool = True) -> dict:
+    """Per-position layout of one model cell on a mesh of ``mesh``'s shape
+    (meta positions: nothing is allocated)."""
+    mesh = _as_meta(mesh)
+    model = get_model(cfg)
+    params = sh.as_meta(model.param_specs())
+    pshard = sh.param_shardings(params, mesh, cfg.vocab)
+    whole = sum(whole_of(t) for t, s in sh.tree_items(params, pshard)
+                if sh.spec_blocks(mesh, s) > 1)
+    parts = {"params": sh.layout_bytes(params, pshard, mesh)}
+    collectives = {}
+    extra = {}
+    if shape.kind == "train":
+        state = opt_mod.init_fn(cfg.optimizer)(params)
+        oshard = sh.opt_state_shardings(state, mesh, cfg.vocab)
+        batch = sh.as_meta(model.train_input_specs(shape))
+        bshard = sh.batch_shardings(batch, mesh)
+        parts["opt_state"] = sh.layout_bytes(state, oshard, mesh)
+        parts["batch"] = sh.layout_bytes(batch, bshard, mesh)
+        out_bytes = 3 * 4                   # the metrics; the rest aliased
+        accum = _ACCUM[cfg.grad_accum_dtype]
+        blocks = sh.spec_blocks(mesh, bshard["tokens"][:1])
+        collectives = step_collectives(
+            layouts(params, pshard), mesh, batch_blocks=blocks,
+            vocab=cfg.vocab, microbatches=cfg.microbatches,
+            hoist=cfg.hoist_weight_gather, accum_dtype=accum,
+            optimizer=cfg.optimizer,
+            opt_cfg=opt_mod.OptConfig(name=cfg.optimizer))
+        gdt = lambda t: t.dtype if cfg.hoist_weight_gather else accum
+        extra["gradient_bytes_per_position"] = sum(
+            sh.block_bytes(tuple(t.shape), gdt(t), s, mesh)
+            for t, s in sh.tree_items(params, pshard))
+    else:
+        # serving: each sharded param gathered whole for compute, and a
+        # decode's cache gathered over its non-data axes
+        gathers = [whole_of(t) for t, s in sh.tree_items(params, pshard)
+                   if sh.spec_blocks(mesh, s) > 1]
+        if shape.kind == "prefill":
+            batch = sh.as_meta(model.train_input_specs(shape))
+            batch.pop("labels", None)
+            out_shape = (shape.global_batch, 1, cfg.vocab)
+            out_spec = ShardCtx(mesh, rules).pspec(out_shape, "batch", None,
+                                                   "vocab")
+            out_bytes = sh.block_bytes(out_shape, torch.float32, out_spec,
+                                       mesh)
+        else:
+            batch = sh.as_meta(model.decode_input_specs(shape))
+            caches = sh.as_meta(model.cache_specs(shape.global_batch,
+                                                  shape.seq_len))
+            cshard = sh.cache_shardings(caches, mesh, shape.global_batch,
+                                        seq_to_model)
+            parts["caches"] = sh.layout_bytes(caches, cshard, mesh)
+            parts["position"] = 4
+            tok = (shape.global_batch,)
+            out_bytes = sh.block_bytes(tok, torch.int32,
+                                       sh.batch_pspec(tok, mesh), mesh)
+            daxes = set(sh.data_axes(mesh))
+            cache_gathers = []
+            for t, s in sh.tree_items(caches, cshard):
+                rest = [e if not (set(sh.axes_of(e)) & daxes) else None
+                        for e in s]
+                if sh.spec_blocks(mesh, rest) > 1:
+                    cache_gathers.append(sh.spec_blocks(mesh, rest) * (
+                        sh.block_bytes(tuple(t.shape), t.dtype, s, mesh)))
+            extra["gathered_cache_bytes_per_position"] = sum(cache_gathers)
+            gathers += cache_gathers
+        bshard = sh.batch_shardings(batch, mesh)
+        parts["batch"] = sh.layout_bytes(batch, bshard, mesh)
+        if gathers:
+            collectives["all-gather"] = {"count": len(gathers),
+                                         "bytes": sum(gathers)}
+    args = sum(parts.values())
+    held = (args + out_bytes + whole
+            + extra.get("gradient_bytes_per_position", 0)
+            + extra.get("gathered_cache_bytes_per_position", 0))
+    mem, source = card_memory()
+    rec = dict(
+        positions=mesh.size, mesh_shape=dict(mesh.shape),
+        argument_bytes_per_position=args, argument_parts=parts,
+        output_bytes_per_position=out_bytes,
+        gathered_params_bytes_per_position=whole, **extra,
+        collectives=collectives,
+        collective_bytes_per_device=sum(c["bytes"]
+                                        for c in collectives.values()),
+        layout_bytes_per_position=held, card_bytes=mem, card=source,
+        fits_hbm=held < mem)
+    if activations:
+        rec["activation_layouts"] = activation_layouts(cfg, shape, mesh,
+                                                       rules)
+    return rec
+
+
+def cell_name(arch: str, shape_name: str, multi_pod: bool,
+              tag: str = "") -> str:
+    return f"{arch}__{shape_name}__{mesh_name(multi_pod)}{tag}"
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
+             seq_to_model: bool = True, tag: str = "", rules=None,
+             cfg=None) -> dict:
+    t0 = time.time()
+    cell = cell_name(arch, shape_name, multi_pod, tag)
+    print(f"[dryrun] {cell} ...", flush=True)
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    try:
+        lay = model_layout(cfg, shape, meta_mesh(multi_pod),
+                           seq_to_model=seq_to_model, rules=rules)
+        tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                       else 1)
+        n_active = cfg.active_param_count()
+        rec = dict(cell=cell, arch=arch, shape=shape_name,
+                   mesh=mesh_name(multi_pod), chips=lay["positions"],
+                   kind=shape.kind, status="ok", layout_only=True, **lay,
+                   n_params=cfg.param_count(), n_active_params=n_active,
+                   model_flops=(6 if shape.kind == "train" else 2)
+                   * n_active * tokens)
+        print(f"  ok: args {rec['argument_bytes_per_position'] / 1e9:.2f} GB"
+              f"  collectives {rec['collective_bytes_per_device'] / 1e9:.2f}"
+              f" GB  held {rec['layout_bytes_per_position'] / 1e9:.2f} GB "
+              f"per position", flush=True)
+    except Exception as e:          # record failures as cells too
+        rec = dict(cell=cell, arch=arch, shape=shape_name,
+                   mesh=mesh_name(multi_pod), status="error",
+                   error=f"{type(e).__name__}: {e}")
+        print(f"  ERROR: {type(e).__name__}: {str(e)[:300]}", flush=True)
+    rec["seconds"] = time.time() - t0
+    return _write(outdir, rec)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--graph", action="store_true")
@@ -189,14 +446,22 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="skip cells whose JSON already exists and is ok")
     ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--seq-to-model", default="1")
+    ap.add_argument("--rule", action="append", default=[],
+                    help="logical-axis rule override, e.g. seq_shard=skip "
+                         "or batch=pod,data")
+    ap.add_argument("--tag", default="", help="suffix for output cell names")
     args = ap.parse_args(argv)
-    if args.arch or args.all:
-        ap.error("the model cells (--arch / --all) are not ported: they "
-                 "wait for the models and their steps, ROADMAP section "
-                 "1.A.4")
-    if not args.graph:
-        ap.error("nothing to run: pass --graph")
+    if not (args.graph or args.arch or args.all):
+        ap.error("nothing to run: pass --graph, --arch or --all")
+    rules = {}
+    for r in args.rule:
+        k, v = r.split("=", 1)
+        rules[k] = "skip" if v == "skip" else tuple(a for a in v.split(",")
+                                                   if a)
+    rules = rules or None
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
 
@@ -210,8 +475,8 @@ def main(argv=None) -> int:
     kinds = [("pagerank", None)] + [
         (khop_kind(*form), form)
         for form in ((False, False), (True, False), (True, True))]
-    written = skip = 0
-    for kind, form in kinds:
+    written = skip = err = 0
+    for kind, form in (kinds if args.graph else []):
         for name in GRAPH_CELLS:
             for mp in meshes:
                 if args.resume and done(
@@ -223,8 +488,28 @@ def main(argv=None) -> int:
                 else:
                     run_graph_cell(name, mp, args.out, *form)
                 written += 1
-    print(f"[dryrun] done: {written} written, {skip} skipped (resume)")
-    return 0
+    archs = ARCHS if args.all else ([args.arch] if args.arch else [])
+    for arch in archs:
+        cfg = get_config(arch)
+        shape_list = ([args.shape] if args.shape
+                      else [s.name for s in shapes_for(cfg)])
+        for shape_name in shape_list:
+            if shape_name in cfg.skip_shapes:
+                print(f"[dryrun] skip {arch} x {shape_name} (documented)")
+                continue
+            for mp in meshes:
+                if args.resume and done(cell_name(arch, shape_name, mp,
+                                                  args.tag)):
+                    skip += 1
+                    continue
+                rec = run_cell(arch, shape_name, mp, args.out,
+                               seq_to_model=args.seq_to_model == "1",
+                               tag=args.tag, rules=rules, cfg=cfg)
+                written += 1
+                err += rec["status"] != "ok"
+    print(f"[dryrun] done: {written} written ({err} errors), {skip} skipped "
+          f"(resume)")
+    return 1 if err else 0
 
 
 if __name__ == "__main__":

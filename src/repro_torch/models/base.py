@@ -85,12 +85,13 @@ def as_tree(node):
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts, lists and tuples (and of
-    ``rest``, trees of the same nesting), keeping the nesting."""
+    ``rest``, trees of the same nesting), keeping the nesting. A ``Spec``
+    record is a leaf."""
     tree = as_tree(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)

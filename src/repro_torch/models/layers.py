@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distr.shardctx import shard
 from repro_torch.models.base import spec
 
 NEG_INF = -1e30
@@ -170,6 +171,7 @@ def attention(p, x, fl: AttnFlavor, *, positions, cache=None, cache_slot=None,
                  ).reshape(q.shape)
         k = rope(k, positions, fl.rope_theta)
     if cache is None:
+        q = shard(q, "batch", "seq_shard", None, None, None)
         out = chunked_attention(q, k, v, q_positions=positions,
                                 kv_positions=positions, fl=fl,
                                 kv_chunk=kv_chunk,
@@ -218,6 +220,7 @@ def mlp(p, x, kind: str):
         hidden = F.gelu(mm(x, p["wg"]), approximate="tanh") * mm(x, p["wu"])
     else:
         hidden = F.gelu(mm(x, p["wu"]), approximate="tanh")
+    hidden = shard(hidden, "batch", None, "ff")
     return mm(hidden, p["wd"])
 
 
@@ -273,9 +276,10 @@ def moe_mlp(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25):
                                                       device=dev))
     xe = torch.zeros((B * E * cap, D), dtype=x.dtype, device=dev)
     xe.index_add_(0, flat_slot, xt.reshape(-1, D))
-    xe = xe.reshape(B, E, cap, D)
+    xe = shard(xe.reshape(B, E, cap, D), "batch", "expert", None, None)
     he = F.silu(_experts(xe, p["wg"], "becd,edf->becf")) * \
         _experts(xe, p["wu"], "becd,edf->becf")
+    he = shard(he, "batch", "expert", None, "ff")
     ye = _experts(he, p["wd"], "becf,efd->becd")                  # (B, E, cap, D)
     g = ye.reshape(B * E * cap, D)[flat_slot].reshape(B, S * top_k, D)
     g = torch.where(keep[..., None], g, torch.zeros((), dtype=ye.dtype,
@@ -301,11 +305,11 @@ def embed(p, tokens, d_model: int, scale: bool):
         # becomes float32 there, and so here
         s = np.float32(np.sqrt(d_model))
         h = h.to(torch.promote_types(h.dtype, torch.float32)) * float(s)
-    return h
+    return shard(h, "batch", None, "embed")
 
 
 def unembed(p, h, cap: float, tied: bool):
     w = p["tok"].T if tied else p["out"]
     logits = h @ w.to(h.dtype)
-    return softcap(logits.float(), cap)
+    return shard(softcap(logits.float(), cap), "batch", None, "vocab")
 

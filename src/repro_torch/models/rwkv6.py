@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distr.shardctx import shard
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
                                      remat, spec, token_input_specs,
@@ -63,6 +64,8 @@ def _wkv_scan(r, k, v, w, u, state):
     """r,k,v: (B,T,H,hd); w: (B,T,H,hd) decay in (0,1); state: (B,H,hd,hd).
     y_t = r_t . (S_{t-1} + u (x) k_t v_t);  S_t = diag(w_t) S_{t-1} + k_t (x) v_t.
     """
+    if r.is_meta:           # shapes only: the dry-run's layout pass
+        return r.new_empty(r.shape), state.new_empty(state.shape)
     S = state
     ys = []
     for t in range(r.shape[1]):
@@ -102,6 +105,7 @@ def _channel_mix(p, x, shift_state):
     xk = _lerp(x, x_prev, p["mu_ck"])
     xr = _lerp(x, x_prev, p["mu_cr"])
     k = torch.square(torch.relu(L.mm(xk, p["wck"])))
+    k = shard(k, "batch", None, "ff")
     return torch.sigmoid(L.mm(xr, p["wcr"])) * L.mm(k, p["wcv"]), x[:, -1, :]
 
 
@@ -110,7 +114,7 @@ def _block(cfg, lp, h, tm_s, cm_s, wkv_s):
                                      wkv_s)
     h = h + att
     ffn, cm_new = _channel_mix(lp, L.rmsnorm(h, lp["ln2"]), cm_s)
-    return h + ffn, tm_new, cm_new, wkv_new
+    return shard(h + ffn, "batch", None, "embed"), tm_new, cm_new, wkv_new
 
 
 def forward(cfg: ModelConfig, params, tokens, states=None, last_only=False):
@@ -144,7 +148,7 @@ def forward(cfg: ModelConfig, params, tokens, states=None, last_only=False):
     if last_only:
         h = h[:, -1:]
     logits = h @ params["embed"]["out"].to(h.dtype)
-    return logits.float(), states
+    return shard(logits.float(), "batch", None, "vocab"), states
 
 
 def loss_fn(cfg, params, batch):

@@ -11,6 +11,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distr.shardctx import shard
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
                                      remat, spec, token_input_specs,
@@ -74,7 +75,7 @@ def _layer(cfg: ModelConfig, p, h, layer_idx, positions, cache, cache_slot,
                        cfg.moe_capacity_factor)
     else:
         ff = L.mlp(p["mlp"], hn, cfg.mlp)
-    return h + ff
+    return shard(h + ff, "batch", None, "embed")
 
 
 def forward(cfg: ModelConfig, params, h, positions, caches=None,

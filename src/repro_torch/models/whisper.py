@@ -22,6 +22,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distr.shardctx import shard
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
                                      remat, spec, token_input_specs,
@@ -80,13 +81,15 @@ def encode(cfg: ModelConfig, params, frames):
     h = L.mm(frames.to(dtype_of(cfg)), params["front_proj"])
     positions = torch.arange(h.shape[1], device=h.device)
     h = h + _sinusoid(positions, cfg.d_model).to(h.dtype)
+    h = shard(h, "batch", None, "embed")
     fl = _fl(cfg, False)
 
     def layer(lp, h):
         att, _ = L.attention(lp["attn"], L.rmsnorm(h, lp["ln1"]), fl,
                              positions=positions, kv_chunk=cfg.kv_chunk)
         h = h + att
-        return h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+        h = h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+        return shard(h, "batch", None, "embed")
 
     for lp in params["enc_layers"]:
         h = remat(cfg, layer, lp, h)
@@ -132,6 +135,7 @@ def decode_stack(cfg, params, tokens, positions, enc_h=None, caches=None,
     fl_self, fl_cross = _fl(cfg, True), _fl(cfg, False)
     h = L.embed(params["embed"], tokens, cfg.d_model, False)
     h = h + _sinusoid(positions, cfg.d_model).to(h.dtype)[None, :, :]
+    h = shard(h, "batch", None, "embed")
     decode = caches is not None
 
     def layer(i, lp, h):
@@ -148,7 +152,8 @@ def decode_stack(cfg, params, tokens, positions, enc_h=None, caches=None,
             kv = _enc_kv(lp["cross_attn"], enc_h, fl_cross)
         h = h + _cross_attention(lp["cross_attn"], L.rmsnorm(h, lp["lnx"]),
                                  kv, fl_cross, kv_chunk=cfg.kv_chunk)
-        return h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+        h = h + L.mlp(lp["mlp"], L.rmsnorm(h, lp["ln2"]), "gelu")
+        return shard(h, "batch", None, "embed")
 
     for i, lp in enumerate(params["dec_layers"]):
         h = layer(i, lp, h) if decode else remat(cfg, layer, i, lp, h)
@@ -156,7 +161,7 @@ def decode_stack(cfg, params, tokens, positions, enc_h=None, caches=None,
     if last_only:
         h = h[:, -1:]
     logits = h @ params["embed"]["tok"].T.to(h.dtype)
-    return logits.float(), caches
+    return shard(logits.float(), "batch", None, "vocab"), caches
 
 
 def loss_fn(cfg, params, batch):

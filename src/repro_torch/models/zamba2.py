@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distr.shardctx import shard
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
                                      remat, spec, token_input_specs,
@@ -92,6 +93,8 @@ def _ssd_scan(xh, Bm, Cm, dtv, a, state):
     """xh: (B,T,H,P); Bm,Cm: (B,T,N); dtv: (B,T,H); a: (H,) < 0.
     h_t = exp(a dt) h_{t-1} + dt * x_t (x) B_t ;  y_t = h_t . C_t.
     state: (B,H,P,N)."""
+    if xh.is_meta:          # shapes only: the dry-run's layout pass
+        return xh.new_empty(xh.shape), state.new_empty(state.shape)
     h = state
     ys = []
     for t in range(xh.shape[1]):
@@ -133,7 +136,8 @@ def shared_block(cfg, p, h, positions, cache=None, cache_slot=None,
                          cache_slot=cache_slot, kv_positions=kv_positions,
                          kv_chunk=cfg.kv_chunk)
     h = h + att
-    return h + L.mlp(p["mlp"], L.rmsnorm(h, p["ln2"]), "gelu")
+    h = h + L.mlp(p["mlp"], L.rmsnorm(h, p["ln2"]), "gelu")
+    return shard(h, "batch", None, "embed")
 
 
 def forward(cfg: ModelConfig, params, tokens, positions, states=None,
@@ -156,7 +160,7 @@ def forward(cfg: ModelConfig, params, tokens, positions, states=None,
                           lp, h)
     h = L.rmsnorm(h, params["ln_f"])
     logits = h @ params["embed"]["out"].to(h.dtype)
-    return logits.float(), states
+    return shard(logits.float(), "batch", None, "vocab"), states
 
 
 def loss_fn(cfg, params, batch):

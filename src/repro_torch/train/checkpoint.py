@@ -20,6 +20,11 @@ Fault tolerance: writes go to step_<N>.tmp then a single atomic rename; a
 crash mid-write never corrupts LATEST. ``restore`` checks each leaf's path,
 shape and dtype against the tree it fills, and its sha1. Leaves are
 written, read and hashed on a few threads at once.
+
+Elastic restore: ``restore(..., shardings=)`` places each leaf onto the
+mesh the restarted job has (``distr.sharding.place``), so the job can
+resume on another data-parallel size; ``save`` takes a placed tree too and
+writes it in the same layout (each distinct block copied to the host once).
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.base import jax_leaves
+from repro_torch.distr import sharding as sh
+from repro_torch.models.base import jax_leaves, tree_map
 from repro_torch.models.convert import host_array
 
 
@@ -48,18 +54,22 @@ def _sha1(arr: np.ndarray) -> str:
         np.ascontiguousarray(arr).reshape(-1).view(np.uint8)).hexdigest()
 
 
+def _copy_into(host: torch.Tensor, t):
+    if isinstance(t, sh.Placed):
+        sh.gather_leaf(t, out=host)
+    else:
+        host.copy_(t.detach())
+
+
 def _host_leaves(tree):
     """``[(path, host array, dtype name)]``: copies of the tree's JAX
-    leaves, layers stacked, on the host."""
+    leaves (tensors or ``Placed`` blocks), layers stacked, on the host."""
     out = []
     for path, ts, stacked in jax_leaves(tree):
-        if stacked:
-            host = torch.empty((len(ts),) + tuple(ts[0].shape),
-                               dtype=ts[0].dtype)
-            for i, t in enumerate(ts):
-                host[i].copy_(t.detach())
-        else:
-            host = ts[0].detach().to("cpu", copy=True)
+        host = torch.empty(((len(ts),) if stacked else ())
+                           + tuple(ts[0].shape), dtype=ts[0].dtype)
+        for i, t in enumerate(ts):
+            _copy_into(host[i] if stacked else host, t)
         out.append((path, host_array(host), _dtype_name(host)))
     return out
 
@@ -113,10 +123,18 @@ def latest_step(directory: str) -> Optional[int]:
 
 @torch.no_grad()
 def restore(tree_like, directory: str, step: Optional[int] = None,
-            verify: bool = True):
+            shardings=None, verify: bool = True, mesh=None):
     """Copy a checkpoint into the tensors of ``tree_like``, in place:
     (tree_like, step). Each leaf's path, shape and dtype must equal the
-    tree's, and (``verify``) its bytes the manifest's sha1."""
+    tree's, and (``verify``) its bytes the manifest's sha1.
+
+    With ``shardings`` (a tree of specs in ``tree_like``'s nesting, from
+    ``distr.sharding``) and ``mesh``, nothing is written into
+    ``tree_like``, which may be meta tensors or ``Spec`` records: each
+    leaf, read and checked, is placed onto the mesh (on a mesh of one
+    device, copied there whole once, its blocks views of it; else each
+    distinct block copied to each device once), and the placed tree is
+    returned: (placed tree, step)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -124,6 +142,13 @@ def restore(tree_like, directory: str, step: Optional[int] = None,
     d = os.path.join(directory, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("restore: shardings= needs the mesh (mesh=)")
+        tree_like = sh.as_meta(tree_like)
+        spec_of = {}
+        tree_map(lambda t, s: spec_of.setdefault(id(t), s), tree_like,
+                    shardings)
     groups = jax_leaves(tree_like)
     if len(manifest["leaves"]) != len(groups):
         raise ValueError(f"tree structure changed: {len(manifest['leaves'])} "
@@ -144,6 +169,11 @@ def restore(tree_like, directory: str, step: Optional[int] = None,
 
     with _pool() as pool:           # every leaf checked before any is copied
         arrays = list(pool.map(load, manifest["leaves"]))
+    placed = {}
+    # one device: each tensor copied there once, its blocks views of it;
+    # several: each distinct block copied to each device from the host
+    to = mesh.home if shardings is not None and \
+        mesh.distinct_devices == 1 else None
     for meta, (_, ts, stacked), arr in zip(manifest["leaves"], groups,
                                            arrays):
         if meta["dtype"] == "bfloat16":
@@ -151,7 +181,15 @@ def restore(tree_like, directory: str, step: Optional[int] = None,
         else:
             src = torch.from_numpy(arr)
         for i, t in enumerate(ts):
-            t.copy_(src[i] if stacked else src)
+            part = src[i] if stacked else src
+            if shardings is None:
+                t.copy_(part)
+            else:
+                placed[id(t)] = sh.place_leaf(
+                    part if to is None else part.to(to), spec_of[id(t)],
+                    mesh)
+    if shardings is not None:
+        return tree_map(lambda t: placed[id(t)], tree_like), step
     return tree_like, step
 
 

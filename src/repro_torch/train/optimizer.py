@@ -94,23 +94,35 @@ def adamw_init(params):
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def adamw_coeffs(opt: OptConfig, step):
+    """``(lr, bc1, bc2)`` of the step numbered ``step``."""
+    lr = float(schedule(opt, step))
+    bc1 = float(1 - opt.b1 ** step.float())
+    bc2 = float(1 - opt.b2 ** step.float())
+    return lr, bc1, bc2
+
+
+@torch.no_grad()
+def adamw_apply(opt: OptConfig, p, g, m, v, rank: int, lr, bc1, bc2):
+    """One element-wise AdamW update of ``p`` (and its moments) in place;
+    ``rank`` is the JAX leaf's stacked rank (decay from 2)."""
+    g = g.float()
+    m.mul_(opt.b1).add_(g, alpha=1 - opt.b1)
+    v.mul_(opt.b2).addcmul_(g, g, value=1 - opt.b2)
+    u = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
+    if rank >= 2:
+        u.add_(p.float(), alpha=opt.weight_decay)
+    p.copy_(p.float() - lr * u)
+
+
 @torch.no_grad()
 def adamw_update(opt: OptConfig, params, grads, state):
     step = _step(state)
-    lr = float(schedule(opt, step))
-    b1, b2 = opt.b1, opt.b2
-    bc1 = float(1 - b1 ** step.float())
-    bc2 = float(1 - b2 ** step.float())
+    lr, bc1, bc2 = adamw_coeffs(opt, step)
     for rank, ps, gs, ms, vs in _groups(params, grads, state["m"],
                                         state["v"]):
         for p, g, m, v in zip(ps, gs, ms, vs):
-            g = g.float()
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1 - b2)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
-            if rank >= 2:
-                u.add_(p.float(), alpha=opt.weight_decay)
-            p.copy_(p.float() - lr * u)
+            adamw_apply(opt, p, g, m, v, rank, lr, bc1, bc2)
     state["step"] = step
     return params, state
 
@@ -148,18 +160,40 @@ def adafactor_init(params, opt: OptConfig = OptConfig()):
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def adafactor_coeffs(opt: OptConfig, step):
+    """``(lr, beta2)`` of the step numbered ``step``."""
+    return (float(schedule(opt, step)),
+            float(1.0 - step.float() ** (-opt.decay_rate)))
+
+
+def adafactor_per_layer(opt: OptConfig, rank: int, factored: bool,
+                        nbytes32: int) -> bool:
+    """Whether the RMS clip runs per layer: where the JAX update maps over
+    the layers (``nbytes32``: the stacked leaf's bytes in float32)."""
+    return (rank >= 4 and factored
+            and nbytes32 >= opt.chunked_update_min_bytes)
+
+
+@torch.no_grad()
+def apply_update(opt: OptConfig, p, u, rms, rank: int, lr):
+    """``p -= lr * (u / max(rms, 1) [+ decay])`` in place."""
+    u = u / torch.clamp(rms, min=1.0)
+    if rank >= 2:
+        u.add_(p.float(), alpha=opt.weight_decay)
+    p.copy_(p.float() - lr * u)
+
+
 @torch.no_grad()
 def adafactor_update(opt: OptConfig, params, grads, state):
     step = _step(state)
-    lr = float(schedule(opt, step))
-    beta2 = float(1.0 - step.float() ** (-opt.decay_rate))
+    lr, beta2 = adafactor_coeffs(opt, step)
     acc_of = {}
     tree_map(lambda p, a: acc_of.setdefault(id(p), a), params, state["acc"])
     for rank, ps, gs in _groups(params, grads):
         accs = [acc_of[id(p)] for p in ps]
         factored = "vr" in accs[0]
-        per_layer = (rank >= 4 and factored and sum(p.numel() for p in ps)
-                     * 4 >= opt.chunked_update_min_bytes)
+        per_layer = adafactor_per_layer(
+            opt, rank, factored, sum(p.numel() for p in ps) * 4)
         us = []
         for g, acc in zip(gs, accs):
             g = g.float()
@@ -184,10 +218,7 @@ def adafactor_update(opt: OptConfig, params, grads, state):
             whole = torch.sqrt(total / sum(u.numel() for u in us) + 1e-30)
             rms = [whole] * len(us)
         for p, u, r in zip(ps, us, rms):
-            u = u / torch.clamp(r, min=1.0)
-            if rank >= 2:
-                u.add_(p.float(), alpha=opt.weight_decay)
-            p.copy_(p.float() - lr * u)
+            apply_update(opt, p, u, r, rank, lr)
     state["step"] = step
     return params, state
 

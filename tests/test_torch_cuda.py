@@ -1745,3 +1745,131 @@ def test_train_entry_point_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         train.main(["--steps", "1", "--device", "cuda"])
+
+
+# -- the models on the mesh ----------------------------------------------------------
+def _mesh_of_card(shape, names):
+    from repro_torch.distr.mesh import Mesh
+    return Mesh(np.full(shape, torch.device("cuda", 0), dtype=object), names)
+
+
+def _tiny_qwen2(device):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import tiny_config
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer as opt_mod
+    cfg = tiny_config(get_config("qwen2-1.5b"))
+    model = get_model(cfg)
+    params = model.init(0, "cpu").to(device)
+    return cfg, model, params, opt_mod.adamw_init(params)
+
+
+@pytest.mark.parametrize("clip", [1e3, 1.0])
+def test_mesh_step_on_the_card_matches_the_cards_unsharded_step(clip):
+    """A (2, 2) mesh of the card, AdamW with one microbatch a data block,
+    against the card's unsharded step with two microbatches (deterministic
+    algorithms on): the first loss bit for bit; with a clip the norm stays
+    under, every param and moment bit for bit; with the default clip,
+    which scales here (the tiny model's norm is about 2.8), the scale's
+    last bits differ (the norm's partial sums run per block) and the
+    params are held to ``train_parity``'s bounds (each within 2 lr, at
+    most 1e-4 of them past 0.01 lr), the losses within 1e-5."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distr import sharding as sh
+    from repro_torch.distr.shardctx import ShardCtx, use
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.data import synthetic_batch, to_device
+    from repro_torch.train.train_step import make_train_step
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = _mesh_of_card((2, 2), ("data", "model"))
+        cfg, model, params, state = _tiny_qwen2("cuda")
+        _, _, ref_p, ref_s = _tiny_qwen2("cuda")
+        opt = opt_mod.OptConfig(lr=1e-3, warmup_steps=1, total_steps=2,
+                                clip_norm=clip)
+        P = sh.place(params, sh.param_shardings(params, mesh, cfg.vocab),
+                     mesh)
+        St = sh.place(state, sh.opt_state_shardings(state, mesh, cfg.vocab),
+                      mesh)
+        step = make_train_step(model, opt)
+        ref = make_train_step(model, opt, microbatches=2)
+        for k in range(2):
+            b = to_device(synthetic_batch(cfg, ShapeConfig("t", 8, 4,
+                                                           "train"), k),
+                          "cuda")
+            with use(ShardCtx(mesh)):
+                P, St, m = step(P, St, sh.place(
+                    b, sh.batch_shardings(b, mesh), mesh))
+            ref_p, ref_s, rm = ref(ref_p, ref_s, b)
+            if k == 0 or clip > 1:
+                assert float(m["loss"]) == float(rm["loss"])
+            assert abs(float(m["loss"]) - float(rm["loss"])) <= 1e-5
+            assert (float(rm["grad_norm"]) < clip) == (clip > 1)
+        pairs = list(zip(tree_leaves(sh.gather(P)) + tree_leaves(
+            sh.gather(St)), tree_leaves(ref_p) + tree_leaves(ref_s)))
+        assert all(a.device.type == "cuda" for a, _ in pairs)
+        if clip > 1:            # the step count is a host scalar there
+            assert all(torch.equal(a, b_.detach().to(a.device))
+                       for a, b_ in pairs)
+        d = torch.cat([(a - b_.detach()).abs().flatten() for a, b_ in pairs
+                       [:len(tree_leaves(ref_p))]])
+        assert float(d.max()) <= 2 * 1e-3 * 2
+        assert int((d > 0.01 * 1e-3 * 2).sum()) <= 1e-4 * d.numel()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def test_restore_onto_a_mesh_of_the_card(tmp_path):
+    """bfloat16 params and float32 moments restored from a checkpoint onto a
+    (2, 4) mesh of the card: every block on the card, gathered bit for
+    bit."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.distr import sharding as sh
+    from repro_torch.launch.serve import tiny_config
+    from repro_torch.models import get_model
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    cfg = dataclasses.replace(tiny_config(get_config("qwen2-1.5b")),
+                              dtype="bfloat16")
+    model = get_model(cfg)
+    params = model.init(0, "cuda")
+    state = opt_mod.adamw_init(params)
+    for t in tree_leaves(state["m"]):
+        t.normal_()
+    ckpt.save((params, state), str(tmp_path), 2)
+    mesh = _mesh_of_card((2, 4), ("data", "model"))
+    like = (model.param_specs(),
+            opt_mod.adamw_init(sh.as_meta(model.param_specs())))
+    specs = (sh.param_shardings(like[0], mesh, cfg.vocab),
+             sh.opt_state_shardings(like[1], mesh, cfg.vocab))
+    placed, at = ckpt.restore(like, str(tmp_path), shardings=specs,
+                              mesh=mesh)
+    assert at == 2
+    for x in sh.tree_items(placed):
+        assert all(t.is_cuda for t in x.blocks if t is not None)
+    for a, b in zip(tree_leaves(sh.gather(placed)),
+                    tree_leaves((params, state))):
+        assert torch.equal(a.cpu(), b.detach().cpu())
+
+
+def test_replicated_leaf_is_held_once_per_card():
+    """Placing on 16 positions of the card: a leaf replicated over the mesh
+    is one tensor (no copy of the card's tensor); a sharded leaf's blocks
+    are views of it, so the card holds each leaf once."""
+    from repro_torch.distr import sharding as sh
+    mesh = _mesh_of_card((4, 4), ("data", "model"))
+    x = torch.randn(8, 6, device="cuda")        # 6 % 4: not sharded
+    rep = sh.place_leaf(x, (None, None), mesh)
+    assert len({id(t) for t in rep.blocks}) == 1
+    assert rep.blocks[0].data_ptr() == x.data_ptr()
+    y = torch.randn(16, 8, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    blk = sh.place_leaf(y, ("data", "model"), mesh)
+    assert torch.cuda.memory_allocated() == before
+    assert len({t.data_ptr() for t in blk.blocks}) == 16
+    assert torch.equal(sh.gather_leaf(blk), y)
