@@ -93,9 +93,10 @@ Phases, each printing one JSON line:
             bfloat16 push's L1 printed)
   dryrun_graph  ``python -m repro_torch.launch.dryrun --graph --mesh
             both`` into ``experiments/dryrun_graph``: one line per cell (16
-            layout cells), and the layout accounting of the (4, 2) mesh
-            equal to the bytes the probes held (arguments, gathered
-            frontiers and push vectors)
+            cells: layout, position 0's counted cost, memory and roofline),
+            and the layout accounting of the (4, 2) mesh equal to the bytes
+            the probes held (arguments, gathered frontiers and push
+            vectors)
   write_*   the write path (``write_path_cells``): two ``Database`` graphs
             loaded from R-MAT s16 through ``MutableGraph.create_edge``
             (ELL by ``fmt="auto"``, and BSR with 64-tiles), three rounds
@@ -127,6 +128,10 @@ Phases, each printing one JSON line:
             tokens): tokens/s, ms a decode step against the step's bound,
             the prefill's ms and the peak memory; decode over a 64-token
             prefix against one forward
+  decode_cost  one more batch-4 decode step under the dry-run's counters:
+            its FLOPs and bytes equal to ``launch.dryrun``'s count of the
+            same step on meta tensors, its peak within 10% of the
+            dry-run's; the roofline's bound beside the step's ms
   models_widths  every other arch at its published widths (bfloat16),
             its depth cut (``WIDTH_LAYERS``): a 32-token prefill, decode
             over it against one forward, 8 greedy steps, every logit finite
@@ -144,6 +149,11 @@ Phases, each printing one JSON line:
             from both (uninterrupted and resumed losses compared); losses,
             ms a step, tokens/s against the step's bound, peak memory, and
             one step under ``torch.profiler`` (launches, device-busy ms)
+  train_cost  one more step's forward and backward under the dry-run's
+            counters: its FLOPs and bytes equal to ``launch.dryrun``'s
+            count on a one-position mesh; one sharded step on that mesh of
+            the card, its peak within 10% of the dry-run's; the roofline's
+            bound beside the step's ms and the hand formula's bound
   train_mesh  the models on the mesh (``train_mesh_cells``; no TPU kernel
             lies on it): that checkpoint restored onto ("data", "model")
             = (2, 16) of the card's positions, its gather against the
@@ -153,9 +163,10 @@ Phases, each printing one JSON line:
             under a fake clock), ``plan_restart`` gives (1, 16), and the
             same restore and step there; restore seconds, step ms,
             collectives, bytes a position, the differences
-  dryrun_models  ``launch.dryrun --all --mesh both`` on meta positions,
-            every cell ok, qwen2-1.5b's train cell on each ``train_mesh``
-            mesh equal to the bytes placed there
+  dryrun_models  ``launch.dryrun --all --mesh both --no-cost`` on meta
+            positions, every cell ok, qwen2-1.5b's cells again with their
+            cost, memory and roofline, qwen2-1.5b's train cell on each
+            ``train_mesh`` mesh equal to the bytes placed there
 
 then the kernels line (the word kernels' rows with their launches under
 the mesh, ``mesh_launches``, and their rows at a position's local shapes
@@ -491,12 +502,10 @@ def main() -> int:
         if timed:
             n, k, deg = store.shape[0], store.shape[1], store.max_deg
             plan = store.item_plan()          # built by the call above
-            # the data's need: each row's valid ids and the sentinel that
-            # ends the row (rows are valid-first), the frontier and the
-            # output; one OR per edge and word
-            ids = int(torch.clamp(store.mask.sum(dim=1) + 1, max=deg).sum())
-            nbytes = ids * 4 + k * w * 4 + n * w * 4
-            bound_ms, bound_by = bound(nbytes, store.nnz * w)
+            # the data's need (the kernel module's count)
+            nbytes, nops = bitmap_mxv.launch_cost(
+                n, deg, w, k, valid=store.mask.sum(dim=1))
+            bound_ms, bound_by = bound(nbytes, nops)
             row.update(
                 kernel_ms=time_ms(torch,
                                   lambda: bitmap_mxv.ell_mxv_packed(store, xw)),
@@ -506,7 +515,7 @@ def main() -> int:
                                  lambda: ops.ell_mxm_packed(store, xw),
                                  reps=3, warmup=0),
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                ids_read=ids, padded_id_bytes=n * deg * 4, library_ms=None,
+                padded_id_bytes=n * deg * 4, library_ms=None,
                 items=plan.items, ids_per_item=plan.L,
                 split_rows=plan.split_rows, longest_row=plan.longest_row,
                 l2_gather_bytes=store.nnz * w * 4,
@@ -3726,8 +3735,9 @@ def probe_cells(torch, h):
     for name in cells:
         with open(os.path.join(out_dir, name)) as f:
             c = json.load(f)
-        check(c["status"] == "ok" and c["layout_only"],
-              f"dryrun_graph: {name} not ok")
+        check(c["status"] == "ok" and not c["layout_only"]
+              and c["cost"]["bytes_per_device"] > 0,
+              f"dryrun_graph: {name} not ok or not counted")
         h.emit_phase(phase="dryrun_graph", card=card, cell=c["cell"],
                      positions=c["positions"],
                      argument_bytes_per_position=c[
@@ -3735,8 +3745,10 @@ def probe_cells(torch, h):
                      output_bytes_per_position=c["output_bytes_per_position"],
                      gathered_bytes_per_position=c[
                          "gathered_bytes_per_position"],
-                     collectives=c["collectives"], fits_hbm=c["fits_hbm"],
-                     hbm=c["card"], layout_only=True)
+                     collectives=c["collectives"], cost=c["cost"],
+                     memory=c["memory"], roofline=c["roofline"],
+                     fits_hbm=c["fits_hbm"], hbm=c["card"],
+                     layout_only=False)
     for kind, rec, seen_ in layout:
         check(sum(seen_["shard"]) == rec["argument_bytes_per_position"]
               and set(seen_["gather"]) == {rec["gathered_bytes_per_position"]}
@@ -3967,6 +3979,8 @@ def model_cells(torch, h):
                       else e.self_cuda_time_total for e in kernels)
         busy_ms = busy_us / 1e3 / PROFILED_STEPS
         launches = len(kernels) / PROFILED_STEPS
+    decode_cost_check(torch, h, model, params, cache, tok,
+                      SERVE_CHECK_PREFIX + 2 * PROFILED_STEPS, wall_ms)
     h.emit_phase(phase="serve_qwen2_check", card=card, batch=4,
                  prefix=SERVE_CHECK_PREFIX, max_abs_err=float(
                      (tf - ref).abs().max()), mean_abs_err=float(
@@ -4324,12 +4338,18 @@ def train_cells(torch, h):
             step_device_busy_ms=busy_ms, step_kernel_launches=launches,
             device_idle_share=None if busy_ms is None
             else 1 - busy_ms / steady_ms, elapsed_s=time.perf_counter() - t0)
+        del _
+        h.release()
+        train_cost_check(torch, h, model, fresh, fresh_state, b,
+                         train.opt_config(cfg, train.parse_args(
+                             argv + ["--steps", str(TRAIN_STEPS)])),
+                         steady_ms, bound_ms)
         # the mesh phase restores the checkpoint and steps from the
         # state train_qwen2 restored (it owns them from here: no other
         # name may hold them, the restore's and the profiled step's
         # results included)
         ref = [fresh, fresh_state]
-        del fresh, fresh_state, prof, _
+        del fresh, fresh_state, prof, b
         h.release()
         placed = train_mesh_cells(torch, h, ckdir, ref, argv)
     finally:
@@ -4337,6 +4357,166 @@ def train_cells(torch, h):
     dryrun_model_cells(torch, h, placed)
     h.emit_phase(phase="train_total", card=card,
                  elapsed_s=time.perf_counter() - t_all)
+
+def one_position_mesh(torch):
+    """A ("data", "model") mesh of one position: the card."""
+    from repro_torch.distr.mesh import Mesh
+    return Mesh(np.full((1, 1), torch.device(DEVICE), dtype=object),
+                ("data", "model"))
+
+
+def dryrun_cell(cfg, shape, mesh):
+    """The dry-run's record of one cell on ``mesh``: its layout, cost,
+    memory (the peak: held bytes plus the counted temporaries) and
+    roofline."""
+    from repro_torch.launch import dryrun
+    lay = dryrun.model_layout(cfg, shape, mesh, activations=False)
+    return dict(layout=lay, **dryrun.cell_cost(cfg, shape, mesh, lay))
+
+
+def train_cost_check(torch, h, model, params, state, batch, opt_cfg,
+                     step_ms, hand_ms):
+    """``train_cost``: the dry-run's count of qwen2-1.5b's train step at
+    TRAIN_BATCH x TRAIN_SEQ tokens on a one-position mesh (one part of
+    every row; ``launch.dryrun``: meta tensors at 1 and 2 layers,
+    extrapolated to 28) held against the card. One more step's forward and
+    backward (``train_step.part_grads``, what the sharded step runs a part)
+    under the dry-run's counters (``dryrun.count_ops``) on the card: its
+    FLOPs and bytes must equal the dry-run's as integers. Then one sharded
+    step on a one-position mesh of the card (params, AdamW state and batch
+    placed: views): the bytes it placed must equal the dry-run's
+    arguments, and those plus the step's peak above the bytes live before
+    it must lie within 10% of the dry-run's ``peak_per_device_bytes``.
+    Printed beside the roofline's bound: the measured steady step and the
+    hand formula's operations bound."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distr import sharding as sh
+    from repro_torch.distr.shardctx import ShardCtx, use
+    from repro_torch.launch import dryrun
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.train.train_step import make_train_step, part_grads
+    t_all = time.perf_counter()
+    cfg = model.cfg
+    shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    one = one_position_mesh(torch)
+    t0 = time.perf_counter()
+    dry = dryrun_cell(cfg, shape, one)
+    dry_s = time.perf_counter() - t0
+    cost, mem, rl = dry["cost"], dry["memory"], dry["roofline"]
+    whole = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flops, nbytes, _ = dryrun.count_ops(
+        lambda: part_grads(model, params, whole, batch))
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    del whole
+    check(flops == cost["flops_per_device"]
+          and nbytes == cost["bytes_per_device"],
+          f"train_cost: the card's step counts {flops} FLOPs and {nbytes} "
+          f"bytes, the dry-run {cost['flops_per_device']} and "
+          f"{cost['bytes_per_device']}")
+    h.release()
+    placed = (sh.place(params, sh.param_shardings(params, one, cfg.vocab),
+                       one),
+              sh.place(state, sh.opt_state_shardings(state, one, cfg.vocab),
+                       one),
+              sh.place(batch, sh.batch_shardings(batch, one), one))
+    held = sh.position_bytes(placed, 0)
+    check(held == dry["layout"]["argument_bytes_per_position"],
+          f"train_cost: {held} bytes placed, the dry-run's arguments "
+          f"{dry['layout']['argument_bytes_per_position']}")
+    step = make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with use(ShardCtx(one)):
+        m = step(*placed)[2]
+    torch.cuda.synchronize()
+    mesh_step_ms = 1e3 * (time.perf_counter() - t0)
+    above = torch.cuda.max_memory_allocated() - before
+    check(np.isfinite(float(m["loss"])), "train_cost: the loss is not "
+          "finite")
+    measured = held + above
+    err = mem["peak_per_device_bytes"] / measured - 1
+    check(abs(err) <= 0.1, f"train_cost: the dry-run's peak "
+          f"{mem['peak_per_device_bytes']} bytes against {measured} "
+          f"measured ({err:+.3f})")
+    del placed, m
+    h.release()
+    h.emit_phase(
+        phase="train_cost", card=h.card, arch=cfg.name, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, counted_flops=flops, counted_bytes=nbytes,
+        dryrun_flops=cost["flops_per_device"],
+        dryrun_bytes=cost["bytes_per_device"], equal=True,
+        dryrun_s=dry_s, counted_step_s=counted_s,
+        dryrun_temp_bytes=mem["temp_size_in_bytes"],
+        dryrun_peak_bytes=mem["peak_per_device_bytes"],
+        measured_held_bytes=held, measured_above_bytes=above,
+        measured_peak_bytes=measured, peak_rel_err=err,
+        mesh_step_ms=mesh_step_ms, roofline=rl,
+        roofline_bound_ms=1e3 * rl["bound_s"], steady_step_ms=step_ms,
+        hand_formula_bound_ms=hand_ms,
+        step_over_roofline=step_ms / (1e3 * rl["bound_s"]),
+        elapsed_s=time.perf_counter() - t_all)
+
+
+def decode_cost_check(torch, h, model, params, cache, tok, T, step_ms):
+    """``decode_cost``: the dry-run's count of one qwen2-1.5b decode step at
+    batch 4 over the check's cache of ``T`` slots, on a one-position mesh,
+    held against the card: one more serve step (``make_serve_step``, at the
+    cache's last slot, as the dry-run counts it) under
+    ``dryrun.count_ops``: its FLOPs and bytes equal the dry-run's as
+    integers; the params, cache and token bytes plus the step's peak above
+    the bytes live before it within 10% of the dry-run's
+    ``peak_per_device_bytes``. Printed beside the roofline's bound: the
+    measured step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.serve.serve_step import make_serve_step
+    t_all = time.perf_counter()
+    cfg = model.cfg
+    B = tok.shape[0]
+    shape = ShapeConfig("decode", T, B, "decode")
+    t0 = time.perf_counter()
+    dry = dryrun_cell(cfg, shape, one_position_mesh(torch))
+    dry_s = time.perf_counter() - t0
+    cost, mem, rl = dry["cost"], dry["memory"], dry["roofline"]
+    step = make_serve_step(model)
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves(params) + tree_leaves(cache) + [tok])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    flops, nbytes, _ = dryrun.count_ops(
+        lambda: step(params, cache, {"tokens": tok}, T - 1))
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - before
+    check(flops == cost["flops_per_device"]
+          and nbytes == cost["bytes_per_device"],
+          f"decode_cost: the card's step counts {flops} FLOPs and {nbytes} "
+          f"bytes, the dry-run {cost['flops_per_device']} and "
+          f"{cost['bytes_per_device']}")
+    measured = held + above
+    err = mem["peak_per_device_bytes"] / measured - 1
+    check(abs(err) <= 0.1, f"decode_cost: the dry-run's peak "
+          f"{mem['peak_per_device_bytes']} bytes against {measured} "
+          f"measured ({err:+.3f})")
+    h.emit_phase(
+        phase="decode_cost", card=h.card, arch=cfg.name, batch=B,
+        cache_len=T, counted_flops=flops, counted_bytes=nbytes,
+        dryrun_flops=cost["flops_per_device"],
+        dryrun_bytes=cost["bytes_per_device"], equal=True, dryrun_s=dry_s,
+        dryrun_temp_bytes=mem["temp_size_in_bytes"],
+        dryrun_peak_bytes=mem["peak_per_device_bytes"],
+        measured_held_bytes=held, measured_above_bytes=above,
+        measured_peak_bytes=measured, peak_rel_err=err, roofline=rl,
+        roofline_bound_ms=1e3 * rl["bound_s"], step_wall_ms=step_ms,
+        step_over_roofline=step_ms / (1e3 * rl["bound_s"]),
+        elapsed_s=time.perf_counter() - t_all)
+
 
 def train_mesh_cells(torch, h, ckdir, ref, argv):
     """``train_mesh``: qwen2-1.5b's training state on a ("data", "model")
@@ -4586,9 +4766,11 @@ def train_mesh_cells(torch, h, ckdir, ref, argv):
 
 
 def dryrun_model_cells(torch, h, placed_bytes):
-    """``dryrun_models``: ``launch.dryrun --all --mesh both`` (every arch x
-    shape x production mesh on meta positions; nothing allocated), each
-    cell ok; then qwen2-1.5b's train cell re-run on each mesh
+    """``dryrun_models``: ``launch.dryrun --all --mesh both --no-cost``
+    (every arch x shape x production mesh on meta positions; nothing
+    allocated: the layout), each cell ok, then qwen2-1.5b's cells again
+    with their cost, memory and roofline (counting every cell takes
+    minutes); then qwen2-1.5b's train cell re-run on each mesh
     ``train_mesh`` placed, with its batch, against the bytes each position
     held there."""
     import shutil
@@ -4599,15 +4781,29 @@ def dryrun_model_cells(torch, h, placed_bytes):
     t0 = time.perf_counter()
     out = tempfile.mkdtemp(prefix=".dryrun_", dir=ROOT)
     try:
-        rc = dryrun.main(["--all", "--mesh", "both", "--out", out])
+        rc = dryrun.main(["--all", "--mesh", "both", "--out", out,
+                          "--no-cost"])
+        cells_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        rc_cost = dryrun.main(["--arch", "qwen2-1.5b", "--mesh", "both",
+                               "--out", out])
+        cost_s = time.perf_counter() - t1
         cells = [json.load(open(os.path.join(out, n)))
                  for n in sorted(os.listdir(out))]
     finally:
         shutil.rmtree(out, ignore_errors=True)
     bad = [c["cell"] for c in cells if c["status"] != "ok"]
-    check(rc == 0 and not bad, f"dryrun_models: cells not ok: {bad}")
-    cells_s = time.perf_counter() - t0
+    check(rc == 0 and rc_cost == 0 and not bad,
+          f"dryrun_models: cells not ok: {bad}")
     cfg = get_config("qwen2-1.5b")
+    counted = {f"{c['shape']}/{c['mesh']}": {
+        k: c[k] for k in ("cost", "memory", "roofline", "fits_hbm",
+                          "model_flops_per_device", "useful_flops_ratio")}
+        for c in cells if c["arch"] == cfg.name}
+    check(len(counted) == 6 and all(
+        np.isfinite(c["roofline"]["bound_s"]) and c["cost"]["flops_per_device"]
+        > 0 for c in counted.values()),
+          f"dryrun_models: qwen2-1.5b's cells without a cost: {counted}")
     shape = ShapeConfig("cli", TRAIN_SEQ, TRAIN_BATCH, "train")
     held = {}
     for name, got in placed_bytes.items():
@@ -4626,9 +4822,11 @@ def dryrun_model_cells(torch, h, placed_bytes):
         for c in cells if c["arch"] == cfg.name and c["shape"] == "train_4k"}
     h.emit_phase(phase="dryrun_models", card=h.card, cells=len(cells),
                  archs=len({c["arch"] for c in cells}), cells_s=cells_s,
-                 fits=sum(c["fits_hbm"] for c in cells),
-                 qwen2_train_4k=q, train_mesh_held=held,
-                 elapsed_s=time.perf_counter() - t0)
+                 qwen2_cost_s=cost_s,
+                 fits_layout_only=sum(c["fits_hbm"] for c in cells
+                                      if c["layout_only"]),
+                 qwen2_train_4k=q, qwen2_counted=counted,
+                 train_mesh_held=held, elapsed_s=time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

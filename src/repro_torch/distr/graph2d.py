@@ -526,6 +526,48 @@ def _zero_row(x):
     return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
 
 
+def int8_hop(idx, msk, x_full, visited):
+    """One int8 k-hop step at a position: the rows' OR over the gathered
+    frontier, and-not visited: (the next frontier, visited)."""
+    nxt = _gather_max(idx, msk, x_full).masked_fill_(visited > 0, 0)
+    return nxt, torch.maximum(visited, nxt)
+
+
+def packed_hop(words, visited):
+    """One packed k-hop step at a position, from the pull's words
+    (``ell_mxv_packed``'s output): (the next frontier, visited)."""
+    nxt = bitmap.word_andnot(words, visited)
+    return nxt, bitmap.word_or(visited, nxt)
+
+
+def column_counts(visited, packed: bool, f: int):
+    """A position's visited rows counted a query (int32)."""
+    if packed:
+        return bitmap.reduce_or_columns(visited, f).to(torch.int32)
+    return visited.sum(dim=0, dtype=torch.int32)
+
+
+def pagerank_init(deg, n: int):
+    """A position's (ranks, inverse out-degrees, dangling mask)."""
+    r = torch.full(deg.shape, 1.0 / n, dtype=torch.float32,
+                   device=deg.device)
+    inv = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1e-30), 0.0)
+    return r, inv, deg == 0
+
+
+def pagerank_push(r, inv, push_dtype=None):
+    push = r * inv
+    return push if push_dtype is None else push.to(push_dtype)
+
+
+def dangling_mass(dangling, r):
+    return torch.where(dangling, r, 0.0).sum()
+
+
+def pagerank_update(pulled, mass, alpha: float, n: int):
+    return (1.0 - alpha) / n + alpha * (pulled + mass / n)
+
+
 def khop_counts_2d(mesh: Mesh, n: int, k: int, packed: bool = False,
                    sentinel: bool = False):
     """``fn(indices, mask, frontier0) -> counts (F,)``: the vertices each
@@ -565,19 +607,14 @@ def khop_counts_2d(mesh: Mesh, n: int, k: int, packed: bool = False,
             if sentinel:
                 x_full = local_map(_zero_row, x_full)
             if packed:
-                nxt = [bitmap.word_andnot(_words(e, x), v)
-                       for e, x, v in zip(local, x_full, visited)]
-                visited = [bitmap.word_or(v, y) for v, y in zip(visited, nxt)]
+                steps = [packed_hop(_words(e, x), v)
+                         for e, x, v in zip(local, x_full, visited)]
             else:
-                nxt = [_gather_max(i, m, x).masked_fill_(v > 0, 0)
-                       for i, m, x, v in zip(idx, msk, x_full, visited)]
-                visited = [torch.maximum(v, y) for v, y in zip(visited, nxt)]
-            frontier = nxt
-        if packed:
-            counts = [bitmap.reduce_or_columns(v, f_l).to(torch.int32)
-                      for v in visited]
-        else:
-            counts = [v.sum(dim=0, dtype=torch.int32) for v in visited]
+                steps = [int8_hop(i, m, x, v)
+                         for i, m, x, v in zip(idx, msk, x_full, visited)]
+            frontier = [nxt for nxt, _ in steps]
+            visited = [v for _, v in steps]
+        counts = [column_counts(v, packed, f_l) for v in visited]
         counts = [c - 1 for c in M.psum(mesh, counts, "data")]
         return M.unshard(mesh, counts, out_spec)
     return run
@@ -598,21 +635,17 @@ def pagerank_2d(mesh: Mesh, n: int, iters: int, alpha: float = 0.85,
         idx = M.shard(mesh, indices, ("data", None))
         msk = M.shard(mesh, mask, ("data", None))
         deg = M.shard(mesh, out_deg, ("data",))
-        r = [torch.full(d.shape, 1.0 / n, dtype=torch.float32,
-                        device=d.device) for d in deg]
-        inv = [torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-30), 0.0)
-               for d in deg]
-        dangling = [d == 0 for d in deg]
+        r, inv, dangling = map(list, zip(*[pagerank_init(d, n)
+                                           for d in deg]))
         for _ in range(iters):
-            push = [ri * vi for ri, vi in zip(r, inv)]
-            if push_dtype is not None:
-                push = [p.to(push_dtype) for p in push]
+            push = [pagerank_push(ri, vi, push_dtype)
+                    for ri, vi in zip(r, inv)]
             full = M.all_gather(mesh, push, "data")
             pulled = [_gather_sum(i, m, p)
                       for i, m, p in zip(idx, msk, full)]
-            mass = M.psum(mesh, [torch.where(dg, ri, 0.0).sum()
+            mass = M.psum(mesh, [dangling_mass(dg, ri)
                                  for dg, ri in zip(dangling, r)], "data")
-            r = [(1.0 - alpha) / n + alpha * (pl + dm / n)
+            r = [pagerank_update(pl, dm, alpha, n)
                  for pl, dm in zip(pulled, mass)]
         return M.unshard(mesh, r, ("data",))
     return run

@@ -12,7 +12,8 @@ CUDA device and takes the plain version, ``core.ops.ell_mxm_packed``, when
 they lie on the CPU. ``launches`` counts kernel launches.
 ``ell_mxv_items`` launches it on a given CSR and plan;
 ``ell_mxv_items_plain`` is the same item-wise evaluation in plain torch,
-which the tests hold against the JAX package.
+which the tests hold against the JAX package. ``launch_cost`` is the work
+one launch needs, the count its bound is taken from.
 """
 from __future__ import annotations
 
@@ -42,6 +43,22 @@ def _fn():
         fn.restype = ctypes.c_int
         _bound = fn
     return _bound
+
+
+def launch_cost(rows: int, slots: int, words: int, cols: int, valid=None):
+    """``(bytes, int32 operations)`` one launch needs over ``rows`` ELL rows
+    of ``slots`` padded slots against a ``(cols, words)`` frontier: each
+    row's valid ids and the sentinel that ends it (rows are valid-first,
+    so ``min(valid + 1, slots)`` ids), the frontier and the ``(rows,
+    words)`` output, each read or written once at 4 bytes; one OR a valid
+    slot and word. ``valid``: each row's valid slots (a tensor); None
+    counts every slot valid (the dry-run, which has no data)."""
+    if valid is None:
+        ids = edges = rows * slots
+    else:
+        ids = int(torch.clamp(valid + 1, max=slots).sum())
+        edges = int(valid.sum())
+    return ids * 4 + cols * words * 4 + rows * words * 4, edges * words
 
 
 def ell_mxv_items(csr: RowCSR, plan: ItemPlan, Xw: torch.Tensor

@@ -19,6 +19,8 @@ training turns ``requires_grad_()`` on.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -193,6 +195,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def token_specs(batch: int, seq: int) -> dict:
     return {"tokens": spec((batch, seq), torch.int32),
             "labels": spec((batch, seq), torch.int32)}
+
+
+_SHAPES_ONLY = contextvars.ContextVar("shapes_only", default=False)
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Within it a time scan (rwkv6's, zamba2's) returns empty results of
+    its output shapes without running its steps: for a pass that reads only
+    shapes (the dry-run's annotation log), where a step-by-step scan over
+    a long sequence of meta tensors takes minutes."""
+    token = _SHAPES_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY.reset(token)
+
+
+def scan_shapes_only() -> bool:
+    return _SHAPES_ONLY.get()
 
 
 def remat(cfg, fn, *args):

@@ -19,8 +19,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distr.shardctx import shard
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
-                                     remat, spec, token_input_specs,
-                                     token_specs)
+                                     remat, scan_shapes_only, spec,
+                                     token_input_specs, token_specs)
 
 LORA_R = 64
 
@@ -64,7 +64,7 @@ def _wkv_scan(r, k, v, w, u, state):
     """r,k,v: (B,T,H,hd); w: (B,T,H,hd) decay in (0,1); state: (B,H,hd,hd).
     y_t = r_t . (S_{t-1} + u (x) k_t v_t);  S_t = diag(w_t) S_{t-1} + k_t (x) v_t.
     """
-    if r.is_meta:           # shapes only: the dry-run's layout pass
+    if scan_shapes_only():
         return r.new_empty(r.shape), state.new_empty(state.shape)
     S = state
     ys = []

@@ -20,8 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distr.shardctx import shard
 from repro_torch.models import layers as L
 from repro_torch.models.base import (ModelBundle, cross_entropy, dtype_of,
-                                     remat, spec, token_input_specs,
-                                     token_specs)
+                                     remat, scan_shapes_only, spec,
+                                     token_input_specs, token_specs)
 
 
 def _dims(cfg: ModelConfig):
@@ -93,7 +93,7 @@ def _ssd_scan(xh, Bm, Cm, dtv, a, state):
     """xh: (B,T,H,P); Bm,Cm: (B,T,N); dtv: (B,T,H); a: (H,) < 0.
     h_t = exp(a dt) h_{t-1} + dt * x_t (x) B_t ;  y_t = h_t . C_t.
     state: (B,H,P,N)."""
-    if xh.is_meta:          # shapes only: the dry-run's layout pass
+    if scan_shapes_only():
         return xh.new_empty(xh.shape), state.new_empty(state.shape)
     h = state
     ys = []

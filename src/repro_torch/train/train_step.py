@@ -24,9 +24,13 @@ is:
   * the gradients of the blocks' microbatches are added, in data-position
     order and then microbatch order, straight into each param block
     (a reduce-scatter; an all-reduce for a param not sharded over data) in
-    ``accum_dtype`` (the params' dtype when hoisted), then divided by their
-    count (hoisted: each loss scaled by it first). The loss is the mean of
-    the microbatches' losses, each over its own rows;
+    ``accum_dtype`` (the params' dtype when hoisted), each scaled by its
+    part's weight (hoisted: each loss scaled by it first). The loss is the
+    JAX step's: the mean over its ``microbatches`` contiguous row ranges of
+    each range's mean over its valid labels. A part (data block b, local
+    slice j) lies in JAX microbatch (b * microbatches + j) // blocks, so
+    its weight is its valid labels over ``microbatches`` times that
+    microbatch's (``_part_weights``);
   * the "model" axis partitions the storage and the update, not the compute:
     each block's forward and backward runs with whole params;
   * the global norm, compression's scales and Adafactor's factored
@@ -289,6 +293,38 @@ def _sum_blocks(x: Placed, fn, home) -> torch.Tensor:
     return total
 
 
+def part_grads(model, params, whole, batch, scale=None):
+    """One part of the sharded step: ``(loss, gradients)`` of
+    ``model.loss_fn`` over ``batch`` at the params ``whole`` (tensors that
+    require grad, in ``tree_leaves(params)`` order), the gradient that of
+    ``loss * scale`` when ``scale`` is given. The loss comes back detached,
+    so its graph, which holds ``whole``, goes with the call."""
+    with torch.enable_grad():
+        loss = model.loss_fn(tree_unflatten(params, whole), batch)
+        gs = torch.autograd.grad(loss if scale is None else loss * scale,
+                                 whole)
+    return loss.detach(), gs
+
+
+def _part_weights(labels: Placed, blocks, microbatches: int, home
+                  ) -> List[torch.Tensor]:
+    """Each part's weight in the step's loss, in part order (data block,
+    then local slice): its valid labels (not -100, ``cross_entropy``'s
+    ignore) over ``microbatches`` x the valid labels of the JAX microbatch
+    holding it, at least 1. With equal counts it is 1 / parts. Tensors on
+    ``home``: no host sync."""
+    valid = []
+    for bpos in blocks:
+        t = labels.blocks[bpos]
+        n = t.shape[0] // microbatches
+        valid += [(t[j * n:(j + 1) * n] != -100).sum().to(home)
+                  for j in range(microbatches)]
+    d = len(blocks)
+    total = [torch.clamp(sum(valid[j * d:(j + 1) * d]), min=1)
+             for j in range(microbatches)]
+    return [v / (microbatches * total[q // d]) for q, v in enumerate(valid)]
+
+
 def _mesh_step(model, opt_cfg, mesh, params, opt_state, batch, error_fb, *,
                microbatches, compress_grads, accum_dtype, hoist):
     home = mesh.home
@@ -299,6 +335,8 @@ def _mesh_step(model, opt_cfg, mesh, params, opt_state, batch, error_fb, *,
                              "context's mesh (distr.sharding.place)")
     blocks = _data_blocks(batch)
     n_parts = len(blocks) * microbatches
+    weights = iter(_part_weights(batch["labels"], blocks, microbatches,
+                                 home))
     collectives = step_collectives(
         layouts(params), mesh, batch_blocks=len(blocks),
         vocab=getattr(model.cfg, "vocab", None), microbatches=microbatches,
@@ -311,7 +349,6 @@ def _mesh_step(model, opt_cfg, mesh, params, opt_state, batch, error_fb, *,
     # without microbatches keeps it
     own = hoist or n_parts == 1
     acc = [_zeros_like(x, x.dtype if own else accum_dtype) for x in pleaves]
-    scale = 1.0 / n_parts if hoist else 1.0
     loss = 0.0
     for bpos in blocks:
         dev = mesh.device_at(bpos)
@@ -320,25 +357,19 @@ def _mesh_step(model, opt_cfg, mesh, params, opt_state, batch, error_fb, *,
         for j in range(microbatches):
             mb = {k: v.blocks[bpos][j * n:(j + 1) * n]
                   for k, v in batch.items()}
+            w = next(weights)
             whole = [_whole(x, dev).requires_grad_(True) for x in source]
-            with torch.enable_grad():
-                l = model.loss_fn(tree_unflatten(params, whole), mb)
-                gs = torch.autograd.grad(l * scale, whole)
-            # the loss's graph holds the gathered params: let both go
-            l = l.detach()
+            l, gs = part_grads(model, params, whole, mb,
+                               w.to(dev) if hoist else None)
             del whole
-            loss = loss + l.to(home)
+            loss = loss + w * l.to(home)
             with torch.no_grad():
                 for a, x, g in zip(acc, pleaves, gs):
                     for pos in a.local():
                         t = a.blocks[pos]
-                        t.add_(g[x.slices(pos)].to(t.dtype).to(t.device))
+                        g_t = g[x.slices(pos)].to(t.dtype).to(t.device)
+                        t.add_(g_t if hoist else g_t * w.to(t.device))
             del gs
-    loss = loss / n_parts
-    if not own:             # in place: the same values as ``a / n``
-        for a in acc:
-            for pos in a.local():
-                a.blocks[pos].div_(n_parts)
     grads = tree_unflatten(params, acc)
 
     with torch.no_grad():

@@ -11,7 +11,8 @@ decode on the card against the CPU (float32, atol 1e-4), in-place cache
 writes, and ``launch.serve`` on the card by default; and the training
 path: train steps on the card against the CPU, remat on against off, the
 bfloat16 checkpoint round trip on card tensors, and ``launch.train`` on
-the card by default and raising without one.
+the card by default and raising without one; and the dry-run's counters
+on card tensors against the same runs on meta tensors.
 
 Every test here is marked ``cuda`` and skips when no card is present (the
 kernels have no CPU mode). The file imports neither JAX nor the JAX
@@ -1873,3 +1874,30 @@ def test_replicated_leaf_is_held_once_per_card():
     assert torch.cuda.memory_allocated() == before
     assert len({t.data_ptr() for t in blk.blocks}) == 16
     assert torch.equal(sh.gather_leaf(blk), y)
+
+
+# -- the dry-run's cost side ---------------------------------------------------------
+@pytest.mark.parametrize("name", MODEL_ARCHS)
+def test_dryrun_counts_on_the_card_equal_meta(name):
+    """``launch.dryrun``'s counters on card tensors: a tiny train part
+    (forward and backward, remat on) and a decode step count the FLOPs and
+    bytes that the same run on meta tensors counts, as integers, and the
+    peak of the bytes they allocate is the card's, within the caching
+    allocator's rounding of small blocks (1%)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import tiny_config
+    cfg = tiny_config(get_config(name))
+    for shape in (ShapeConfig("t", 64, 4, "train"),
+                  ShapeConfig("d", 64, 4, "decode")):
+        want = dryrun.count_ops(dryrun.part_fn(cfg, shape, 4))
+        dryrun.part_fn(cfg, shape, 4, "cuda")()    # cuBLAS's workspace
+        run = dryrun.part_fn(cfg, shape, 4, "cuda")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = dryrun.count_ops(run)
+        torch.cuda.synchronize()
+        above = torch.cuda.max_memory_allocated() - before
+        assert got[:2] == want[:2], (shape.kind, got, want)
+        assert abs(above - want[2]) <= 0.01 * want[2] + 4096, (above, want)

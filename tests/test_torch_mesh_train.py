@@ -68,6 +68,9 @@ CASES = {"adamw_mb2": ("2x4", "adamw", 2, False, 2),
          "adafactor": ("2x4", "adafactor", 1, False, 4),
          "adamw_pod": ("2x2x2", "adamw", 1, False, 2),
          "adafactor_pod_mb2": ("2x2x2", "adafactor", 2, False, 4)}
+# the same with labels ignored unevenly over the blocks (``uneven``)
+UNEVEN = {f"uneven_mb{mb}": ("2x4", "adamw", mb, False, 2, "uneven")
+          for mb in (1, 2)}
 
 
 def tiny(layers=2):
@@ -93,6 +96,19 @@ def batches(seed=0):
             for _ in range(STEPS)]
 
 
+def uneven(bs):
+    """``bs`` with labels ignored (-100) unevenly: rows 0-2 half, row 6 a
+    quarter, so every part of a (2, 4) step at 1 or 2 microbatches holds
+    its own count of valid labels."""
+    out = []
+    for b in bs:
+        labels = b["labels"].copy()
+        labels[:3, :S // 2] = -100
+        labels[6, :S // 4] = -100
+        out.append({"tokens": b["tokens"], "labels": labels})
+    return out
+
+
 _JAX_STEPS = r"""
 import os, sys
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
@@ -113,7 +129,7 @@ meshes = {"2x4": jax.sharding.Mesh(devs.reshape(2, 4), ("data", "model")),
           "2x2x2": jax.sharding.Mesh(devs.reshape(2, 2, 2),
                                      ("pod", "data", "model"))}
 out = {}
-for name, (mname, optname, mb, hoist, layers) in cases.items():
+for name, (mname, optname, mb, hoist, layers, *lab) in cases.items():
     cfg = dataclasses.replace(
         get_config("qwen2-1.5b"), n_layers=layers, d_model=64, d_ff=128,
         vocab=160, n_heads=4, n_kv_heads=2, head_dim=16, dtype="float32")
@@ -136,7 +152,7 @@ for name, (mname, optname, mb, hoist, layers) in cases.items():
         state = jax.device_put(state, oshard)
         for k in range(int(I["steps"])):
             b = {"tokens": jnp.asarray(I[f"tokens{k}"]),
-                 "labels": jnp.asarray(I[f"labels{k}"])}
+                 "labels": jnp.asarray(I[f"{(lab or ['labels'])[0]}{k}"])}
             params, state, m = fn(params, state, b)
             for key in ("loss", "grad_norm", "lr"):
                 out[f"{name}/{key}{k}"] = np.asarray(m[key])
@@ -153,9 +169,10 @@ def jax_steps(tmp_path_factory):
     d = tmp_path_factory.mktemp("jax_mesh_steps")
     src, dst = d / "in.npz", d / "out.npz"
     arrays = {}
-    for k, b in enumerate(batches()):
+    for k, (b, u) in enumerate(zip(batches(), uneven(batches()))):
         arrays[f"tokens{k}"], arrays[f"labels{k}"] = b["tokens"], b["labels"]
-    np.savez(src, steps=STEPS, cases=json.dumps(CASES),
+        arrays[f"uneven{k}"] = u["labels"]
+    np.savez(src, steps=STEPS, cases=json.dumps({**CASES, **UNEVEN}),
              opts=json.dumps({n: opt_cfg(n) for n in ("adamw",
                                                       "adafactor")}),
              **arrays)
@@ -313,30 +330,34 @@ def test_mesh_step_equals_unsharded_step(deterministic, mname, optname, mb,
         state_close(jax_tree_of(sh.gather(St)), jax_tree_of(ref_s))
 
 
-def test_loss_is_the_mean_of_the_blocks_means(deterministic):
-    """Known difference from the JAX step: each data block's loss is the
-    mean over its own rows, and the step's loss their mean, where the JAX
-    step takes one mean over the whole (micro)batch. With ignored labels
-    (-100) spread unevenly over the blocks they differ; the sharded step
-    still equals the unsharded microbatched one."""
-    cfg, mesh = tiny(), cpu_mesh("2x4")
-    b = batches()[0]
-    b["labels"][:4, : S // 2] = -100            # block 0 has half the tokens
-    params, state, opt = port_start(cfg, "adamw")
-    model = get_model(cfg)
-    with torch.no_grad():
-        tb = to_torch(b)
-        halves = [float(model.loss_fn(params, {k: v[i * 4:(i + 1) * 4]
-                                               for k, v in tb.items()}))
-                  for i in range(2)]
-        whole = float(model.loss_fn(params, tb))
+@pytest.mark.parametrize("mb", [1, 2])
+def test_loss_is_the_mean_of_the_blocks_means(jax_steps, mb):
+    """With labels ignored (-100) unevenly over the data blocks, the mesh
+    step's loss is the JAX step's: the mean of each microbatch's mean over
+    its valid labels, so each part's mean weighs by its share of its JAX
+    microbatch's valid labels (on (2, 4) at ``microbatches`` 2: D = 2
+    blocks of M = 2 parts). Two steps against the JAX step within
+    ``test_mesh_step_matches_jax``'s tolerances: the loss, the gradient
+    norm and the params."""
+    case = f"uneven_mb{mb}"
+    mname, optname, _, hoist, layers, _ = UNEVEN[case]
+    cfg, mesh = tiny(layers), cpu_mesh(mname)
+    params, state, opt = port_start(cfg, optname)
     P, St = place_all(cfg, mesh, params, state)
-    _, _, (m,) = mesh_steps(cfg, mesh, P, St, opt, [b])
-    np.testing.assert_allclose(float(m["loss"]), np.mean(halves), rtol=1e-6)
-    assert abs(float(m["loss"]) - whole) > 1e-3
-    ref_p, ref_s, _ = port_start(cfg, "adamw")
-    _, _, rm = make_train_step(model, opt, microbatches=2)(ref_p, ref_s, tb)
-    assert float(m["loss"]) == float(rm["loss"])
+    P, St, ms = mesh_steps(cfg, mesh, P, St, opt, uneven(batches()),
+                           microbatches=mb, hoist_weight_gather=hoist)
+    for k, m in enumerate(ms):
+        np.testing.assert_allclose(float(m["loss"]),
+                                   float(jax_steps[f"{case}/loss{k}"]),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jax_steps[f"{case}/grad_norm{k}"]),
+                                   rtol=1e-5)
+    got_p = {"[0]" + k: v for k, v in jax_tree_of(sh.gather(P)).items()}
+    want_p = {"[0]" + k[len(case) + 3:]: v for k, v in jax_steps.items()
+              if k.startswith(f"{case}/p/")}
+    assert got_p.keys() == want_p.keys()
+    params_close(got_p, want_p, STEPS)
 
 
 def test_place_gather_round_trip_and_sharing():

@@ -340,7 +340,9 @@ def test_dryrun_writes_the_sixteen_cells(tmp_path, capsys):
     # positions, F = 256 over 16 "model" positions
     rows, deg, f_l = 2_097_152 // 16, 64, 256 // 16
     k = cell("graph_graph500_s21__khop__pod16x16")
-    assert k["layout_only"] and k["positions"] == 256
+    assert not k["layout_only"] and k["positions"] == 256
+    assert k["memory"]["peak_per_device_bytes"] == (
+        k["layout_bytes_per_position"] + k["memory"]["temp_size_in_bytes"])
     assert k["argument_bytes_per_position"] == rows * deg * 5 + rows * f_l
     assert k["output_bytes_per_position"] == f_l * 4
     assert k["gathered_bytes_per_position"] == 2_097_152 * f_l
