@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import xfer
 
 # entries per device chunk of the structure scan in to_coo, so no single
@@ -56,6 +57,7 @@ BANDS = 32            # row bands per tile in EntryForm.bands
 _tile_builds = [0]
 _densify_calls = [0]
 _host_numeric = [0]
+plan_tasks = 0        # SpGEMM tile tasks planned (before grid padding)
 
 
 def tile_builds() -> int:
@@ -479,7 +481,8 @@ class BSR:
         dev = (entries.vals if payload is None else payload).device
 
         def i32(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+            return xfer.to_device(np.ascontiguousarray(a, np.int32), dev,
+                                  "tiles")
 
         return BSR(shape=tuple(shape), block=block, blocks=payload,
                    block_rows=i32(a_r), block_cols=i32(a_c), first=i32(first),
@@ -498,7 +501,8 @@ class BSR:
         if nbr == 0:
             return BSR._empty((n, m), block, nnz, tiles.device)
         meta = BSR._assemble_meta(b_r, b_c, nbr, nbc, pad_to)
-        src = torch.from_numpy(meta[-1].astype(np.int64)).to(tiles.device)
+        src = xfer.to_device(meta[-1].astype(np.int64), tiles.device,
+                             "tiles")
         keep = (src >= 0)[:, None, None]
         gather = src.clamp(min=0)
 
@@ -573,7 +577,7 @@ class BSR:
         nnz = int(torch.count_nonzero(blocks)) if len(b_r) else 0
         if prune and len(b_r):
             occupied = (blocks != 0).flatten(1).any(dim=1)
-            keep = occupied.cpu().numpy()
+            keep = xfer.to_host(occupied, "tiles").numpy()
             b_r, b_c = b_r[keep], b_c[keep]
             blocks = blocks[occupied]
         return BSR._assemble(blocks, b_r, b_c, (n, m), block, nnz=nnz,
@@ -687,10 +691,10 @@ class BSR:
 
     def valid_tiles(self):
         """Host-side (indices, block_rows, block_cols) of the valid tiles."""
-        va = self.valid.cpu().numpy().astype(bool)
+        va = xfer.to_host(self.valid, "tiles").numpy().astype(bool)
         idx = np.nonzero(va)[0].astype(np.int32)
-        return (idx, self.block_rows.cpu().numpy()[idx],
-                self.block_cols.cpu().numpy()[idx])
+        return (idx, xfer.to_host(self.block_rows, "tiles").numpy()[idx],
+                xfer.to_host(self.block_cols, "tiles").numpy()[idx])
 
     def to_coo(self):
         """Host-side COO extraction, tiles in storage order and row-major
@@ -752,7 +756,18 @@ def spgemm_symbolic(A: BSR, B: BSR, mask: Optional[BSR] = None,
     (host numpy, the JAX package's code): pair every valid A tile (i, l)
     with every valid B tile (l, j) and group the tasks by output tile. A
     non-complemented mask prunes output tiles before any numeric work; a
-    complemented one only annotates."""
+    complemented one only annotates. Adds the tasks to ``plan_tasks``."""
+    global plan_tasks
+    with tracing.span("spgemm_plan") as sp:
+        plan, tasks = _symbolic(A, B, mask, complement, pad_to)
+        sp.set(tasks=tasks, tiles=plan.nc)
+    plan_tasks += tasks
+    return plan
+
+
+def _symbolic(A: BSR, B: BSR, mask: Optional[BSR], complement: bool,
+              pad_to: int):
+    """``spgemm_symbolic``'s plan and its tasks before padding."""
     ia, bra, bca = A.valid_tiles()
     ib, brb, bcb = B.valid_tiles()
     nbc_out = B.nbcols
@@ -818,7 +833,7 @@ def spgemm_symbolic(A: BSR, B: BSR, mask: Optional[BSR] = None,
                       b_sel=b_sel.astype(np.int32),
                       c_sel=c_sel.astype(np.int32), first=first, last=last,
                       valid=valid, c_rows=c_rows, c_cols=c_cols,
-                      mask_sel=mask_sel)
+                      mask_sel=mask_sel), ntask
 
 
 def spgemm(A: BSR, B: BSR, sr, mask: Optional[BSR] = None,
@@ -840,30 +855,34 @@ def spgemm(A: BSR, B: BSR, sr, mask: Optional[BSR] = None,
     if sr.mode not in SPGEMM_MODES:
         raise NotImplementedError(
             f"spgemm does not support mode {sr.mode!r} (semiring {sr.name})")
-    B = reblock(B, A.block)
-    if mask is not None:
-        mask = reblock(mask, A.block)
+    with tracing.span("spgemm") as sp:
+        B = reblock(B, A.block)
+        if mask is not None:
+            mask = reblock(mask, A.block)
 
-    shape = (A.shape[0], B.shape[1])
-    plan = spgemm_symbolic(A, B, mask=mask, complement=complement)
-    if plan.ntasks == 0:
-        return BSR.from_blocks_device(
-            plan.c_rows, plan.c_cols,
-            torch.zeros((0, A.block, A.block), dtype=torch.float32,
-                        device=A.device), shape, A.block)
+        shape = (A.shape[0], B.shape[1])
+        tasks0 = plan_tasks
+        plan = spgemm_symbolic(A, B, mask=mask, complement=complement)
+        sp.set(tasks=plan_tasks - tasks0, tiles=plan.nc)
+        if plan.ntasks == 0:
+            return BSR.from_blocks_device(
+                plan.c_rows, plan.c_cols,
+                torch.zeros((0, A.block, A.block), dtype=torch.float32,
+                            device=A.device), shape, A.block)
 
-    from repro_torch.kernels import bsr_spgemm as _k  # kernels import core
-    mask_blocks = None
-    if mask is not None:
-        sel = torch.from_numpy(np.clip(plan.mask_sel, 0, None).astype(
-            np.int64)).to(A.device)
-        present = torch.from_numpy(plan.mask_sel >= 0).to(A.device)
-        mask_blocks = torch.where(present[:, None, None],
-                                  mask.blocks.to(torch.float32)[sel], 0.0)
-    cblocks = _k.spgemm_blocks(A, B, plan, sr, mask_blocks=mask_blocks,
-                               complement=complement)
-    return BSR.from_blocks_device(plan.c_rows, plan.c_cols, cblocks, shape,
-                                  A.block)
+        from repro_torch.kernels import bsr_spgemm as _k  # imports core
+        mask_blocks = None
+        if mask is not None:
+            sel = xfer.to_device(np.clip(plan.mask_sel, 0, None).astype(
+                np.int64), A.device, "mask_sel")
+            present = xfer.to_device(plan.mask_sel >= 0, A.device,
+                                     "mask_sel")
+            mask_blocks = torch.where(present[:, None, None],
+                                      mask.blocks.to(torch.float32)[sel], 0.0)
+        cblocks = _k.spgemm_blocks(A, B, plan, sr, mask_blocks=mask_blocks,
+                                   complement=complement)
+        return BSR.from_blocks_device(plan.c_rows, plan.c_cols, cblocks,
+                                      shape, A.block)
 
 
 def bsr_union(A: BSR, B: BSR) -> BSR:

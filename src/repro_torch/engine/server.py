@@ -53,12 +53,14 @@ frozen as compacted ELL (the mesh layout has no delta lowering).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core import grb
+from repro_torch import tracing
+from repro_torch.core import bsr as _bsr, grb, xfer
 from repro_torch.graph.graph import Graph
 from repro_torch.kernels import KernelError
 from repro_torch.query.executor import (ExecutionContext, Result,
@@ -94,7 +96,10 @@ class Submitted:
 @dataclasses.dataclass
 class _Batch:
     """A launched sweep: in-flight device work + the host state to finish
-    it. `error` marks a launch-time failure (finish() isolates it)."""
+    it. `error` marks a launch-time failure (finish() isolates it). `bid`
+    is the batch id, the request id of its spans (``repro_torch.tracing``).
+    """
+    bid: int
     members: List[Submitted]            # live members, column-sliced in order
     failed: List[Submitted]             # per-member launch failures (result set)
     ctx: ExecutionContext
@@ -139,6 +144,7 @@ class QueryServer:
         self._inflight: Optional[_Batch] = None
         self._ctx: Optional[ExecutionContext] = None
         self._next_id = 0
+        self._bids = itertools.count()      # batch ids, the spans' rid
         self.log: List[Submitted] = []      # completed queries, in order
         self.stats = {
             "queries": 0, "batches": 0, "solo": 0, "errors": 0,
@@ -151,8 +157,14 @@ class QueryServer:
             # delta since server construction); the batched or_and sweep
             # promises this stays 0 — tests/test_transfers.py pins it
             "host_transfers": 0,
+            # copies between host and card and their bytes (core.xfer), and
+            # SpGEMM plan tasks (core.bsr.plan_tasks), deltas likewise
+            "d2h_bytes": 0, "d2h_copies": 0, "h2d_bytes": 0, "h2d_copies": 0,
+            "plan_tasks": 0,
         }
         self._xfer0 = grb.host_transfers()
+        self._copies0 = xfer.copies()
+        self._tasks0 = _bsr.plan_tasks
         self._refresh()                     # fail fast on a bad source
 
     # -- submission -----------------------------------------------------------
@@ -194,21 +206,29 @@ class QueryServer:
         they come back as error Results."""
         out: Dict[int, Result] = {}
         nxt: Optional[_Batch] = None
-        chunk = self._next_chunk()
-        if chunk:
-            try:
-                ctx = self._refresh()
-                nxt = self._launch(ctx, chunk)
-            except Exception as e:            # snapshot/refresh failure
-                t0 = time.perf_counter()
-                for m in chunk:
-                    m.wait_s = t0 - m.t_submit
-                self.stats["queries"] += len(chunk)
-                nxt = _Batch(chunk, [], self._ctx, [], None, e,
-                             chunk[0].plan.seeds is None)
-        if self._inflight is not None:
-            self._finish(self._inflight, out)
-        self._inflight = nxt
+        with tracing.span("pump") as sp:
+            chunk = self._next_chunk()
+            if chunk:
+                bid = next(self._bids)
+                try:
+                    ctx = self._refresh()
+                    with tracing.span("launch", rid=bid, batch=bid,
+                                      qids=[m.qid for m in chunk]) as ls:
+                        nxt = self._launch(ctx, chunk, bid, ls)
+                except Exception as e:            # snapshot/refresh failure
+                    t0 = time.perf_counter()
+                    for m in chunk:
+                        m.wait_s = t0 - m.t_submit
+                    self.stats["queries"] += len(chunk)
+                    nxt = _Batch(bid, chunk, [], self._ctx, [], None, e,
+                                 chunk[0].plan.seeds is None)
+            done = self._inflight
+            sp.set(launched=nxt.bid if nxt is not None else None,
+                   finished=done.bid if done is not None else None)
+            if done is not None:
+                with tracing.span("finish", rid=done.bid, batch=done.bid):
+                    self._finish(done, out)
+            self._inflight = nxt
         return out
 
     def flush(self) -> Dict[int, Result]:
@@ -274,9 +294,10 @@ class QueryServer:
         self._queue = rest
         return take
 
-    def _launch(self, ctx: ExecutionContext,
-                members: List[Submitted]) -> _Batch:
-        """Resolve the chunk's seeds and enqueue its device sweep. Member-
+    def _launch(self, ctx: ExecutionContext, members: List[Submitted],
+                bid: int, sp) -> _Batch:
+        """Resolve the chunk's seeds and enqueue its device sweep as batch
+        ``bid`` (its ``launch`` span ``sp`` gets the width). Member-
         specific failures (bad seed ids) drop only that member; chunk-level
         failures (unknown label/relation — shared by construction, the
         members are signature-equal) mark the batch for finish() to
@@ -285,7 +306,7 @@ class QueryServer:
         solo = members[0].plan.seeds is None
         for m in members:
             m.wait_s = t0 - m.t_submit
-        b = _Batch(members, [], ctx, [], None, None, solo)
+        b = _Batch(bid, members, [], ctx, [], None, None, solo)
         p0 = members[0].plan
         try:
             src_mask = ctx.node_mask(p0.src_label,
@@ -308,6 +329,7 @@ class QueryServer:
                 b.seed_lists.append(s)
             b.members = live
         width = int(sum(len(s) for s in b.seed_lists))
+        sp.set(width=width)
         if width:
             flat = np.concatenate(b.seed_lists)
             pad = (_aligned(width) - width) if self.align else 0
@@ -358,17 +380,20 @@ class QueryServer:
                 except Exception as e:
                     m.result = _error_result(e)
         elif b.B is not None:
-            Bn = b.B.cpu().numpy()          # the host waits for the device
+            # the host waits for the device
+            Bn = xfer.to_host(b.B, "frontier").numpy()
             off = 0
-            for m, seeds in zip(b.members, b.seed_lists):
-                w = len(seeds)
-                try:
-                    m.result = (b.ctx.project(m.plan, seeds,
-                                              Bn[:, off:off + w])
-                                if w else empty_result(m.plan))
-                except Exception as e:
-                    m.result = _error_result(e)
-                off += w
+            with tracing.span("project", batch=b.bid,
+                              members=len(b.members)):
+                for m, seeds in zip(b.members, b.seed_lists):
+                    w = len(seeds)
+                    try:
+                        m.result = (b.ctx.project(m.plan, seeds,
+                                                  Bn[:, off:off + w])
+                                    if w else empty_result(m.plan))
+                    except Exception as e:
+                        m.result = _error_result(e)
+                    off += w
         else:                               # every member resolved empty
             for m in b.members:
                 m.result = empty_result(m.plan)
@@ -380,3 +405,6 @@ class QueryServer:
             out[m.qid] = m.result
             self.log.append(m)
         self.stats["host_transfers"] = grb.host_transfers() - self._xfer0
+        for k, v in xfer.copies().items():
+            self.stats[k] = v - self._copies0[k]
+        self.stats["plan_tasks"] = _bsr.plan_tasks - self._tasks0

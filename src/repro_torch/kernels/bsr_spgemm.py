@@ -33,7 +33,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import semiring as S
+from repro_torch.core import semiring as S, xfer
 # the entry forms live with the handle that caches them; re-exported here
 from repro_torch.core.bsr import (BANDS, BSR, SPGEMM_MODES,  # noqa: F401
                                   EntryForm, SpGEMMPlan, entry_counts,
@@ -168,7 +168,8 @@ def device_plan(plan: SpGEMMPlan, device) -> DevicePlan:
     """Ship a host plan to ``device``, each array straight from the plan's
     memory (no host copy first)."""
     def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+        return xfer.to_device(np.ascontiguousarray(a, np.int32), device,
+                              "plan")
 
     return DevicePlan(plan.nc, up(plan.a_sel), up(plan.b_sel),
                       up(plan.valid), up(run_pointer(plan)))

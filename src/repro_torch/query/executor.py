@@ -42,7 +42,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import bitmap as _bitmap, grb, semiring as S
+from repro_torch import tracing
+from repro_torch.core import bitmap as _bitmap, grb, semiring as S, xfer
 from repro_torch.core.bsr import bsr_union, spgemm
 from repro_torch.core.grb import Descriptor
 from repro_torch.distr.mesh import Mesh
@@ -86,8 +87,8 @@ def resolve_seeds(p: Plan, src_mask: np.ndarray) -> np.ndarray:
     return seeds[src_mask[seeds]]
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+def _host(t: torch.Tensor, tag: str = "host") -> np.ndarray:
+    return xfer.to_host(t, tag).numpy()
 
 
 # -- predicate evaluation -----------------------------------------------------
@@ -347,7 +348,7 @@ class ExecutionContext:
     def node_mask(self, label, preds=None) -> np.ndarray:
         """bool (n,): vertices carrying `label` and passing all predicates."""
         n = self.graph.n
-        m = _host(self.graph.label_mask(label))
+        m = _host(self.graph.label_mask(label), "mask")
         for p in preds or []:
             m = m & eval_pred(self.graph, p, n)
         return m
@@ -361,9 +362,9 @@ class ExecutionContext:
             keep = np.ones(f, dtype=bool)
         dev = self.device
         B = torch.zeros((self.graph.n, f), dtype=torch.float32, device=dev)
-        B[torch.from_numpy(np.where(keep, seeds, 0)).to(dev),
+        B[xfer.to_device(np.where(keep, seeds, 0), dev, "seeds"),
           torch.arange(f, device=dev)] = \
-            torch.from_numpy(keep.astype(np.float32)).to(dev)
+            xfer.to_device(keep.astype(np.float32), dev, "seeds")
         return B
 
     def _hop_matrix(self, rel, transpose: bool,
@@ -397,13 +398,18 @@ class ExecutionContext:
     def expand(self, B: torch.Tensor, e, sr: S.Semiring,
                dst_mask: np.ndarray) -> torch.Tensor:
         """min..max-hop traversal of B along e.rel in e.direction."""
+        with tracing.span("expand") as sp:
+            return self._expand(B, e, sr, dst_mask, sp)
+
+    def _expand(self, B, e, sr, dst_mask, sp) -> torch.Tensor:
         M = self.matrix(e.rel)
         transposes = {A.OUT: (True,), A.IN: (False,),
                       A.BOTH: (True, False)}[e.direction]
         structural = sr.name == "or_and"
-        dst = torch.from_numpy(np.asarray(dst_mask, dtype=np.float32)).to(
-            B.device)[:, None]
+        dst = xfer.to_device(np.asarray(dst_mask, dtype=np.float32),
+                             B.device, "mask")[:, None]
         if self._expand_spgemm_ok(e, sr, transposes):
+            sp.set(route="spgemm_hop")
             # one masked mxm against the precomputed 1..max hop matrix
             # replaces max_hops sequential hops; <!seeds> removes the
             # closed-walk returns the loop's visited mask would have blocked
@@ -416,36 +422,41 @@ class ExecutionContext:
             # word-resident hop loop: pack once, hop on words with word-wise
             # visited blends ((a & ~v) | (b & ~v) == (a | b) & ~v), unpack
             # once at the end
+            sp.set(route="words")
             f = B.shape[1]
             fw = _bitmap.pack(B)
             vw = fw
             reach_w = torch.zeros_like(fw)
             for h in range(1, e.max_hops + 1):
-                nw = None
-                for t in transposes:
-                    step = grb.mxm_words(M, fw, transpose_a=t)
-                    nw = step if nw is None else _bitmap.word_or(nw, step)
-                fw = _bitmap.word_andnot(nw, vw)
-                vw = _bitmap.word_or(vw, fw)
-                if h >= e.min_hops:
-                    reach_w = _bitmap.word_or(reach_w, fw)
+                with tracing.span("hop", hop=h):
+                    nw = None
+                    for t in transposes:
+                        step = grb.mxm_words(M, fw, transpose_a=t)
+                        nw = step if nw is None else _bitmap.word_or(nw,
+                                                                     step)
+                    fw = _bitmap.word_andnot(nw, vw)
+                    vw = _bitmap.word_or(vw, fw)
+                    if h >= e.min_hops:
+                        reach_w = _bitmap.word_or(reach_w, fw)
             return _bitmap.unpack(reach_w, f) * dst
+        sp.set(route="float")
         reach = torch.zeros_like(B)
         frontier = B
         visited = (B > 0).to(torch.float32)
         for h in range(1, e.max_hops + 1):
-            nxt = None
-            for t in transposes:
-                d = Descriptor(mask=visited if structural else None,
-                               complement=True, transpose_a=t)
-                step = grb.mxm(M, frontier, sr, d)
-                nxt = step if nxt is None else _sr_add(sr, nxt, step)
-            frontier = nxt
-            if structural:
-                visited = torch.maximum(visited,
-                                        (frontier > 0).to(torch.float32))
-            if h >= e.min_hops:
-                reach = _sr_add(sr, reach, frontier)
+            with tracing.span("hop", hop=h):
+                nxt = None
+                for t in transposes:
+                    d = Descriptor(mask=visited if structural else None,
+                                   complement=True, transpose_a=t)
+                    step = grb.mxm(M, frontier, sr, d)
+                    nxt = step if nxt is None else _sr_add(sr, nxt, step)
+                frontier = nxt
+                if structural:
+                    visited = torch.maximum(visited,
+                                            (frontier > 0).to(torch.float32))
+                if h >= e.min_hops:
+                    reach = _sr_add(sr, reach, frontier)
         # destination label/property diagonal
         reach = reach * dst
         if structural:
@@ -459,14 +470,16 @@ class ExecutionContext:
         procedure's host loop reads its own conditions). A CallPlan
         dispatches to its procedure's device half: columns belong to seed
         columns, padding lanes compute and are sliced away."""
-        if isinstance(p, CallPlan):
-            return self._call_device(p, seeds)
-        sr = S.get(p.semiring)
-        B = self.seed_frontier(seeds, keep=keep)
-        for e in p.expands:
-            dst_mask = self.node_mask(e.dst_label, p.var_preds.get(e.dst_var))
-            B = self.expand(B, e, sr, dst_mask)
-        return B
+        with tracing.span("traverse"):
+            if isinstance(p, CallPlan):
+                return self._call_device(p, seeds)
+            sr = S.get(p.semiring)
+            B = self.seed_frontier(seeds, keep=keep)
+            for e in p.expands:
+                dst_mask = self.node_mask(e.dst_label,
+                                          p.var_preds.get(e.dst_var))
+                B = self.expand(B, e, sr, dst_mask)
+            return B
 
     def project(self, p: Plan, seeds: np.ndarray, B) -> Result:
         """Materialize RETURN rows from the final frontier matrix (a tensor,
@@ -530,31 +543,36 @@ class ExecutionContext:
         """Device half of a procedure call (the traverse analog). Seeded
         procedures compute one column per seed; unseeded ones return one
         shared column and reject an explicit `sources:` list."""
-        proc = _procedure(p.proc)
-        a = _call_args(p.proc, proc, p.args)
-        if p.seeds is not None and not proc.seeded:
-            raise ValueError(f"{p.proc} takes no sources "
-                             f"(it is a whole-graph procedure)")
-        return proc.device(self, a, np.asarray(seeds, dtype=np.int64))
+        with tracing.span("call_device", procedure=p.proc) as sp:
+            proc = _procedure(p.proc)
+            a = _call_args(p.proc, proc, p.args)
+            if p.seeds is not None and not proc.seeded:
+                raise ValueError(f"{p.proc} takes no sources "
+                                 f"(it is a whole-graph procedure)")
+            out = proc.device(self, a, np.asarray(seeds, dtype=np.int64))
+            sp.set(rows=int(out.shape[0]))
+            return out
 
     def _call_project(self, p: CallPlan, seeds, Bn: np.ndarray) -> Result:
         """Host half (the project analog): the member's column slice ->
         YIELD rows. YIELD selects, renames and reorders the procedure's
         canonical columns; an unknown yield name raises (per member)."""
-        proc = _procedure(p.proc)
-        a = _call_args(p.proc, proc, p.args)
-        rows = proc.rows(self, a, np.asarray(seeds, dtype=np.int64), Bn)
-        cols, idx = [], []
-        for r in p.returns:
-            if r.var not in proc.columns:
-                raise ValueError(f"{p.proc} yields {list(proc.columns)}, "
-                                 f"not {r.var!r}")
-            cols.append(r.alias or r.var)
-            idx.append(proc.columns.index(r.var))
-        rows = [tuple(row[i] for i in idx) for row in rows]
-        if p.limit is not None:
-            rows = rows[: p.limit]
-        return Result(cols, rows)
+        with tracing.span("call_project", procedure=p.proc) as sp:
+            proc = _procedure(p.proc)
+            a = _call_args(p.proc, proc, p.args)
+            rows = proc.rows(self, a, np.asarray(seeds, dtype=np.int64), Bn)
+            cols, idx = [], []
+            for r in p.returns:
+                if r.var not in proc.columns:
+                    raise ValueError(f"{p.proc} yields "
+                                     f"{list(proc.columns)}, not {r.var!r}")
+                cols.append(r.alias or r.var)
+                idx.append(proc.columns.index(r.var))
+            rows = [tuple(row[i] for i in idx) for row in rows]
+            if p.limit is not None:
+                rows = rows[: p.limit]
+            sp.set(rows=len(rows))
+            return Result(cols, rows)
 
     # -- solo driver ---------------------------------------------------------
     def run(self, query) -> Result:
