@@ -685,19 +685,14 @@ def main() -> int:
                     whole=False):
         """Kernel 4 on one plan: the entry kernel, the tile kernel and the
         plain version, all three bit for bit (0/1 modes, integer weights);
-        the dispatch's pick. Timed: each kernel on a plan already on the
-        card, the entry-form build, the plan's upload, the dispatch on the
-        two handles as the path calls it (upload, the handles' cached
-        forms, kernel) and the plain version. ``whole``: also the
-        host symbolic plan alone and the whole SpGEMM as the path calls it
-        (``core.bsr.spgemm``: plan, upload, mask tiles, counts, entry form,
-        kernel, output pruning), by the host clock."""
+        the dispatch's pick. Timed: each kernel on the plan (built on the
+        card), the entry-form build, the dispatch on the two handles as the
+        path calls it (the handles' cached forms, kernel) and the plain
+        version. ``whole``: also the symbolic plan alone and the whole
+        SpGEMM as the path calls it (``core.bsr.spgemm``: plan, mask tiles,
+        counts, entry form, kernel, output pruning), by the host clock."""
         plan_ = spgemm_symbolic(A, B, mask, complement)
-        mb = None
-        if mask is not None:
-            sel = torch.from_numpy(np.clip(plan_.mask_sel, 0, None)).long()
-            mb = (mask.blocks[sel.to(DEVICE)] * torch.from_numpy(
-                plan_.mask_sel >= 0).float().to(DEVICE)[:, None, None])
+        mb = None if mask is None else plan_.mask_tiles(mask)
 
         def form():
             EA = bsr_spgemm.entry_form(A.blocks)
@@ -706,17 +701,12 @@ def main() -> int:
 
         EA, EB = form()
 
-        def upload():
-            return bsr_spgemm.device_plan(plan_, DEVICE)
-
-        dplan = upload()
-
         def entry():
-            return bsr_spgemm.spgemm_entry(EA, EB, dplan, sr, mask_blocks=mb,
+            return bsr_spgemm.spgemm_entry(EA, EB, plan_, sr, mask_blocks=mb,
                                            complement=complement)
 
         def tile():
-            return bsr_spgemm.spgemm_tile(A.blocks, B.blocks, dplan, sr,
+            return bsr_spgemm.spgemm_tile(A.blocks, B.blocks, plan_, sr,
                                           mask_blocks=mb,
                                           complement=complement)
 
@@ -784,7 +774,6 @@ def main() -> int:
             row.update(kernel_ms=entry_ms if picked == "entry" else tile_ms,
                        entry_ms=entry_ms, tile_ms=tile_ms,
                        entry_form_ms=time_ms(torch, form),
-                       plan_upload_ms=time_ms(torch, upload),
                        dispatch_ms=time_ms(torch, dispatch),
                        plain_ms=time_ms(torch, plain, reps=2, warmup=0),
                        bound_ms=on_path[0], bound_by=on_path[1],

@@ -13,9 +13,12 @@ union). Every array is bit-identical to the JAX build of the same input:
   * the tile count is padded to a multiple of ``pad_to`` = 8 by repeating
     the last tile's coordinates with valid = first = last = 0.
 
-Coordinates are planned on the host in numpy (``_assemble_meta``,
-``spgemm_symbolic``, copied from the JAX package); tile payloads are
-built, gathered and pruned on the storage's device. ``from_coo`` is one
+The tile list (``_assemble_meta``) is laid out in torch on the device its
+coordinates lie on: the host for a build from host arrays, the card for
+an output whose coordinates a device plan made. SpGEMM's symbolic plan
+(``spgemm_symbolic``) runs in torch on the operands' device and stays
+there; only its two counts cross to the host. Tile payloads are built,
+gathered and pruned on the storage's device. ``from_coo`` is one
 vectorised scatter straight into the final tile order (the JAX build loops
 over tiles on the host), and ``transpose`` transposes each tile on the
 device (the JAX build goes through a dense n x n on the host).
@@ -58,6 +61,7 @@ _tile_builds = [0]
 _densify_calls = [0]
 _host_numeric = [0]
 plan_tasks = 0        # SpGEMM tile tasks planned (before grid padding)
+plan_host_copies = 0  # copies through core.xfer that SpGEMM plans made
 
 
 def tile_builds() -> int:
@@ -213,6 +217,14 @@ def entry_form(blocks: torch.Tensor, counts: Optional[torch.Tensor] = None,
         cols[s:e] = (p % b).to(torch.uint8)
         vals[s:e] = chunk[t, p]
     return _form(counts, rows, cols, vals, b)
+
+
+def _coords(a) -> torch.Tensor:
+    """Tile coordinates as an int32 tensor: a tensor stays on its device,
+    anything else (numpy, a list) becomes a host tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.int32)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
 
 def stored_fill(*handles: "BSR") -> float:
@@ -427,82 +439,82 @@ class BSR:
 
     @staticmethod
     def _assemble_meta(b_r, b_c, nbr: int, nbc: int, pad_to: int = 8):
-        """Structural phase on coordinates only (host numpy, the JAX
-        package's code). From unique, unsorted valid-tile coordinates
-        returns ``(a_r, a_c, valid, first, last, row_ptr, src)``, where
+        """Structural phase on coordinates only (the JAX package's numpy
+        code, in torch on the coordinates' device: numpy input is laid out
+        on the host). From unique, unsorted valid-tile coordinates returns
+        int32 ``(a_r, a_c, valid, first, last, row_ptr, src)``, where
         ``src`` maps each output slot to its position in the caller's
         valid-tile list (-1 = an all-zero padding tile)."""
-        b_r = np.asarray(b_r, dtype=np.int32)
-        b_c = np.asarray(b_c, dtype=np.int32)
-        nv = len(b_r)
+        b_r, b_c = _coords(b_r), _coords(b_c)
+        dev = b_r.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        nv = b_r.shape[0]
 
-        present = np.zeros(nbr, dtype=bool)
-        present[b_r] = True
-        missing = np.nonzero(~present)[0].astype(np.int32)
-        tot = nv + len(missing)
+        present = torch.zeros(nbr, dtype=torch.bool, device=dev)
+        present[b_r.long()] = True
+        missing = torch.nonzero(~present).flatten().to(torch.int32)
+        nm = missing.shape[0]
+        tot = nv + nm
 
-        a_r = np.concatenate([b_r, missing])
-        a_c = np.concatenate([b_c, np.zeros(len(missing), np.int32)])
-        valid = np.concatenate([np.ones(nv, np.int32),
-                                np.zeros(len(missing), np.int32)])
-        src = np.concatenate([np.arange(nv, dtype=np.int32),
-                              np.full(len(missing), -1, np.int32)])
+        a_r = torch.cat([b_r, missing])
+        a_c = torch.cat([b_c, torch.zeros(nm, **i32)])
+        valid = torch.cat([torch.ones(nv, **i32), torch.zeros(nm, **i32)])
+        src = torch.cat([torch.arange(nv, **i32), torch.full((nm,), -1, **i32)])
 
-        order = np.argsort(a_r.astype(np.int64) * nbc + a_c, kind="stable")
+        order = torch.sort(a_r.long() * nbc + a_c, stable=True).indices
         a_r, a_c, valid, src = a_r[order], a_c[order], valid[order], src[order]
 
-        first = np.zeros(tot, dtype=np.int32)
-        last = np.zeros(tot, dtype=np.int32)
-        first[0] = 1
-        first[1:] = (a_r[1:] != a_r[:-1]).astype(np.int32)
+        first = torch.ones(tot, **i32)
+        first[1:] = (a_r[1:] != a_r[:-1]).to(torch.int32)
+        last = torch.ones(tot, **i32)
         last[:-1] = first[1:]
-        last[-1] = 1
 
-        row_ptr = np.zeros(nbr + 1, dtype=np.int32)
-        np.add.at(row_ptr, a_r + 1, 1)
-        row_ptr = np.cumsum(row_ptr).astype(np.int32)
+        # a_r ascends: row r's tiles start at the first slot holding r or more
+        row_ptr = torch.searchsorted(a_r, torch.arange(nbr + 1, **i32),
+                                     out_int32=True)
 
         pad = (-tot) % pad_to
         if pad:
-            a_r = np.concatenate([a_r, np.full(pad, a_r[-1], np.int32)])
-            a_c = np.concatenate([a_c, np.full(pad, a_c[-1], np.int32)])
-            valid = np.concatenate([valid, np.zeros(pad, np.int32)])
-            first = np.concatenate([first, np.zeros(pad, np.int32)])
-            last = np.concatenate([last, np.zeros(pad, np.int32)])
-            src = np.concatenate([src, np.full(pad, -1, np.int32)])
+            def tail(a, fill=None):
+                end = a[-1:] if fill is None else a.new_full((1,), fill)
+                return torch.cat([a, end.expand(pad)])
+            a_r, a_c, src = tail(a_r), tail(a_c), tail(src, -1)
+            valid, first, last = tail(valid, 0), tail(first, 0), tail(last, 0)
         return a_r, a_c, valid, first, last, row_ptr, src
 
     @staticmethod
     def _from_meta(meta, payload, shape, block: int, nnz: int,
                    emask=None, entries: Optional[EntryForm] = None) -> "BSR":
         """A handle on ``meta``'s tile list holding ``payload`` tiles, or
-        (``payload`` None) the ``entries`` of its tiles."""
+        (``payload`` None) the ``entries`` of its tiles. A tile list laid
+        out on the host is copied to the payload's device."""
         a_r, a_c, valid, first, last, row_ptr, _ = meta
         dev = (entries.vals if payload is None else payload).device
 
-        def i32(a):
-            return xfer.to_device(np.ascontiguousarray(a, np.int32), dev,
-                                  "tiles")
+        def on(t):
+            return t if t.device == dev else xfer.to_device(t, dev, "tiles")
 
         return BSR(shape=tuple(shape), block=block, blocks=payload,
-                   block_rows=i32(a_r), block_cols=i32(a_c), first=i32(first),
-                   last=i32(last), valid=i32(valid), row_ptr=i32(row_ptr),
+                   block_rows=on(a_r), block_cols=on(a_c), first=on(first),
+                   last=on(last), valid=on(valid), row_ptr=on(row_ptr),
                    nnz=nnz, emask=emask, entries=entries)
 
     @staticmethod
     def _assemble(tiles: torch.Tensor, b_r, b_c, shape, block: int, nnz: int,
                   pad_to: int = 8, emask=None) -> "BSR":
         """A BSR from a list of *valid* tiles (a tensor on the target
-        device) with unique, unsorted coordinates; the payload is gathered
-        into the final order on the device. ``emask`` (same tile list,
-        bool) rides the same gather."""
+        device) with unique, unsorted coordinates (host arrays, or tensors
+        on any device); the payload is gathered into the final order on
+        the device. ``emask`` (same tile list, bool) rides the same
+        gather."""
         n, m = shape
         nbr, nbc = -(-n // block), -(-m // block)
         if nbr == 0:
             return BSR._empty((n, m), block, nnz, tiles.device)
         meta = BSR._assemble_meta(b_r, b_c, nbr, nbc, pad_to)
-        src = xfer.to_device(meta[-1].astype(np.int64), tiles.device,
-                             "tiles")
+        src = meta[-1].long()
+        if src.device != tiles.device:
+            src = xfer.to_device(src, tiles.device, "tiles")
         keep = (src >= 0)[:, None, None]
         gather = src.clamp(min=0)
 
@@ -544,7 +556,7 @@ class BSR:
         meta = BSR._assemble_meta((ukey // nbc).astype(np.int32),
                                   (ukey % nbc).astype(np.int32), nbr, nbc,
                                   pad_to)
-        src = meta[-1]
+        src = meta[-1].numpy()
         slot = np.empty(len(ukey), dtype=np.int64)
         pos = np.nonzero(src >= 0)[0]
         slot[src[pos]] = pos
@@ -565,19 +577,21 @@ class BSR:
                            pad_to: int = 8, prune: bool = True) -> "BSR":
         """A BSR from computed tile payloads (the SpGEMM numeric phase), on
         the payloads' device. All-zero tiles are pruned on the device so
-        ``nvals`` / ``fill_ratio`` report stored structure; only the (nt,)
-        occupancy and the nnz scalar cross to the host. ``nnz`` counts the
-        nonzero entries."""
+        ``nvals`` / ``fill_ratio`` report stored structure. Coordinates on
+        the payloads' device (a device plan's) stay there, and only the nnz
+        scalar crosses to the host; host coordinates take the (nt,)
+        occupancy down and the tile list up. ``nnz`` counts the nonzero
+        entries."""
         n, m = shape
-        b_r = np.asarray(block_rows, dtype=np.int32)
-        b_c = np.asarray(block_cols, dtype=np.int32)
+        b_r, b_c = _coords(block_rows), _coords(block_cols)
         blocks = torch.as_tensor(blocks).to(torch.float32)
         if -(-n // block) == 0:
             return BSR._empty((n, m), block, 0, blocks.device)
         nnz = int(torch.count_nonzero(blocks)) if len(b_r) else 0
         if prune and len(b_r):
             occupied = (blocks != 0).flatten(1).any(dim=1)
-            keep = xfer.to_host(occupied, "tiles").numpy()
+            keep = (occupied if b_r.device == occupied.device
+                    else xfer.to_host(occupied, "tiles"))
             b_r, b_c = b_r[keep], b_c[keep]
             blocks = blocks[occupied]
         return BSR._assemble(blocks, b_r, b_c, (n, m), block, nnz=nnz,
@@ -627,7 +641,7 @@ class BSR:
         keep = (nz > 0)[tile]
         tile, slot, v = tile[keep], slot[keep], v[keep]
         meta = BSR._assemble_meta(b_r[occ], b_c[occ], nbr, nbc, pad_to)
-        src = meta[-1]
+        src = meta[-1].numpy()
         pos = np.nonzero(src >= 0)[0]
         # the kept tiles ascend by key, so their slots keep the entries'
         # order: each entry only moves to its tile's slot number
@@ -682,10 +696,8 @@ class BSR:
         nnz = int(s.sum())
         if em is not None and not bool((s & (tiles == 0)).any()):
             em = None    # no explicit zero survives: the JAX build drops it
-        keep_np = keep.cpu().numpy()
         return BSR._assemble(
-            tiles[keep], self.block_cols[v].cpu().numpy()[keep_np],
-            self.block_rows[v].cpu().numpy()[keep_np],
+            tiles[keep], self.block_cols[v][keep], self.block_rows[v][keep],
             (self.shape[1], self.shape[0]), self.block, nnz,
             emask=None if em is None else em[keep])
 
@@ -712,23 +724,24 @@ SPGEMM_MODES = ("dot", "dot_pair", "dot_indicator", "dot_first")
 
 @dataclasses.dataclass
 class SpGEMMPlan:
-    """Output of the symbolic phase: the block-level multiply schedule.
+    """Output of the symbolic phase: the block-level multiply schedule, as
+    int32 tensors on the operands' device.
 
     Task t multiplies A tile ``a_sel[t]`` by B tile ``b_sel[t]`` into output
-    tile ``c_sel[t]``; tasks are sorted by c_sel so each output tile is one
-    contiguous run (``first`` / ``last`` bound it). ``valid=0`` marks grid
-    padding. ``mask_sel[j]`` is the mask tile backing output tile j (-1 =
-    absent, an all-zero mask tile).
+    tile j for ``cptr[j] <= t < cptr[j + 1]``: tasks are sorted by output
+    tile, so each output tile is one contiguous run, in the JAX package's
+    task order. ``valid=0`` marks grid padding, past ``cptr[nc]``.
+    ``mask_sel[j]`` is the mask tile backing output tile j (-1 = absent, an
+    all-zero mask tile).
     """
-    a_sel: np.ndarray     # (T,) i32 index into A.blocks
-    b_sel: np.ndarray     # (T,) i32 index into B.blocks
-    c_sel: np.ndarray     # (T,) i32 index into the output tile list
-    first: np.ndarray     # (T,) i32 1 iff first task of its output tile
-    last: np.ndarray      # (T,) i32 1 iff last task of its output tile
-    valid: np.ndarray     # (T,) i32 0 for padding tasks
-    c_rows: np.ndarray    # (nc,) i32 block-row per output tile
-    c_cols: np.ndarray    # (nc,) i32 block-col per output tile
-    mask_sel: Optional[np.ndarray]  # (nc,) i32 mask tile per output tile / -1
+    a_sel: torch.Tensor     # (T,) i32 index into A.blocks
+    b_sel: torch.Tensor     # (T,) i32 index into B.blocks
+    valid: torch.Tensor     # (T,) i32 0 for padding tasks
+    cptr: torch.Tensor      # (nc + 1,) i32 each output tile's run of tasks
+    c_rows: torch.Tensor    # (nc,) i32 block-row per output tile
+    c_cols: torch.Tensor    # (nc,) i32 block-col per output tile
+    mask_sel: Optional[torch.Tensor]  # (nc,) i32 mask tile per output tile
+    tasks: int              # tasks before grid padding (cptr[nc])
 
     @property
     def ntasks(self) -> int:
@@ -738,115 +751,134 @@ class SpGEMMPlan:
     def nc(self) -> int:
         return int(self.c_rows.shape[0])
 
+    def c_sel(self) -> torch.Tensor:
+        """(T,) int64: each task's output tile, from the run pointer;
+        padding tasks repeat the last task's."""
+        dev = self.cptr.device
+        c = torch.repeat_interleave(torch.arange(self.nc, device=dev),
+                                    self.cptr.diff(), output_size=self.tasks)
+        return torch.cat([c, c[-1:].expand(self.ntasks - self.tasks)])
 
-def _ragged_ranges(offsets: np.ndarray, lens: np.ndarray) -> np.ndarray:
-    """concat(range(offsets[i], offsets[i]+lens[i]) for i) vectorized."""
-    total = int(lens.sum())
-    if total == 0:
-        return np.zeros(0, dtype=np.int64)
-    ends = np.cumsum(lens)
-    task_start = np.repeat(ends - lens, lens)
-    return (np.arange(total, dtype=np.int64) - task_start
-            + np.repeat(offsets, lens))
+    def mask_tiles(self, mask: BSR) -> torch.Tensor:
+        """(nc, b, b) float32: the mask tile behind each output tile, all
+        zero where the mask stores none."""
+        sel = self.mask_sel.long()
+        return torch.where((sel >= 0)[:, None, None],
+                           mask.blocks.to(torch.float32)[sel.clamp(min=0)],
+                           0.0)
+
+
+_NO_KEY = torch.iinfo(torch.int64).max   # sorts after every tile key
+
+
+def _lookup(keys: torch.Tensor, idx: torch.Tensor,
+            wanted: torch.Tensor) -> torch.Tensor:
+    """For each of ``wanted``, ``idx`` at its key in the ascending
+    ``keys``, or -1 where no key equals it."""
+    if keys.numel() == 0:
+        return torch.full_like(wanted, -1)
+    j = torch.searchsorted(keys, wanted).clamp_(max=keys.numel() - 1)
+    return torch.where(keys[j] == wanted, idx[j], -1)
+
+
+def _plan_to_host(t: torch.Tensor) -> torch.Tensor:
+    """One of a plan's copies to the host, counted in plan_host_copies."""
+    global plan_host_copies
+    plan_host_copies += 1
+    return xfer.to_host(t, "plan")
 
 
 def spgemm_symbolic(A: BSR, B: BSR, mask: Optional[BSR] = None,
                     complement: bool = False, pad_to: int = 8) -> SpGEMMPlan:
-    """Block-level pattern of C = A (x) B, optionally restricted to <M>
-    (host numpy, the JAX package's code): pair every valid A tile (i, l)
-    with every valid B tile (l, j) and group the tasks by output tile. A
-    non-complemented mask prunes output tiles before any numeric work; a
-    complemented one only annotates. Adds the tasks to ``plan_tasks``."""
+    """Block-level pattern of C = A (x) B, optionally restricted to <M>, in
+    torch on the operands' device: pair every valid A tile (i, l) with
+    every valid B tile (l, j) and group the tasks by output tile, task for
+    task the JAX package's numpy plan. A non-complemented mask prunes
+    output tiles before any numeric work; a complemented one only
+    annotates. Two small copies cross to the host: the pairs' count, then
+    the tasks' and the output tiles' (``plan_host_copies``). Adds the tasks
+    to ``plan_tasks``."""
     global plan_tasks
     with tracing.span("spgemm_plan") as sp:
-        plan, tasks = _symbolic(A, B, mask, complement, pad_to)
-        sp.set(tasks=tasks, tiles=plan.nc)
-    plan_tasks += tasks
+        plan = _symbolic(A, B, mask, complement, pad_to)
+        sp.set(tasks=plan.tasks, tiles=plan.nc)
+    plan_tasks += plan.tasks
     return plan
 
 
 def _symbolic(A: BSR, B: BSR, mask: Optional[BSR], complement: bool,
-              pad_to: int):
-    """``spgemm_symbolic``'s plan and its tasks before padding."""
-    ia, bra, bca = A.valid_tiles()
-    ib, brb, bcb = B.valid_tiles()
-    nbc_out = B.nbcols
-
-    order = np.argsort(brb, kind="stable")
-    ib, brb, bcb = ib[order], brb[order], bcb[order]
+              pad_to: int) -> SpGEMMPlan:
+    dev = A.device
+    nbc = B.nbcols
     nbk = B.nbrows
-    cnt = np.bincount(brb, minlength=nbk)
-    ptr = np.concatenate([[0], np.cumsum(cnt)])
+    i32 = dict(dtype=torch.int32, device=dev)
 
-    lens = cnt[bca]
-    a_rep = np.repeat(np.arange(len(ia), dtype=np.int64), lens)
-    pos = _ragged_ranges(ptr[bca], lens)
-    a_sel = ia[a_rep]
-    b_sel = ib[pos]
-    ckey = bra[a_rep].astype(np.int64) * nbc_out + bcb[pos]
+    # B's valid tiles grouped by block row, in tile order (a stable sort;
+    # padding tiles go to row nbk, which no valid A tile reaches)
+    brow = torch.where(B.valid != 0, B.block_rows.long(), nbk)
+    brow, ib = torch.sort(brow, stable=True)
+    start = torch.searchsorted(brow, torch.arange(nbk + 2, device=dev))
+    cnt = start.diff()
 
-    mkeys = midx = None
+    # one task per (A tile, matching B tile) pair, A's tiles in order
+    acol = A.block_cols.long()
+    lens = torch.where(A.valid != 0, cnt[acol], 0)
+    pairs = int(_plan_to_host(lens.sum()))
+    a_sel = torch.repeat_interleave(torch.arange(A.nnzb, **i32), lens,
+                                    output_size=pairs)
+    ends = torch.cumsum(lens, 0)
+    shift = start[acol] - (ends - lens)
+    b_sel = ib[torch.arange(pairs, device=dev) + shift[a_sel]]
+    del shift
+    key = A.block_rows.long()[a_sel] * nbc + B.block_cols.long()[b_sel]
+
+    mkey = midx = None
     if mask is not None:
-        im, brm, bcm = mask.valid_tiles()
-        mkeys = brm.astype(np.int64) * nbc_out + bcm
-        morder = np.argsort(mkeys)
-        mkeys, midx = mkeys[morder], im[morder]
+        mkey = mask.block_rows.long() * nbc + mask.block_cols.long()
+        mkey, midx = torch.sort(torch.where(mask.valid != 0, mkey, _NO_KEY),
+                                stable=True)
         if not complement:
-            keep = np.isin(ckey, mkeys)
-            a_sel, b_sel, ckey = a_sel[keep], b_sel[keep], ckey[keep]
+            # dropped pairs sort after every kept one
+            key = torch.where(_lookup(mkey, midx, key) >= 0, key, _NO_KEY)
 
-    order = np.argsort(ckey, kind="stable")
-    a_sel, b_sel, ckey = a_sel[order], b_sel[order], ckey[order]
-    ukey, c_sel = np.unique(ckey, return_inverse=True)
-    c_sel = c_sel.reshape(-1)
-    c_rows = (ukey // nbc_out).astype(np.int32)
-    c_cols = (ukey % nbc_out).astype(np.int32)
+    # tasks by output tile; each tile's run keeps the pairs' order
+    key, order = torch.sort(key, stable=True)
+    new = torch.ones(pairs, dtype=torch.bool, device=dev)
+    new[1:] = key[1:] != key[:-1]
+    held = key != _NO_KEY
+    counts = torch.stack([held.sum(), (new & held).sum()])
+    ntask, nc = (int(v) for v in _plan_to_host(counts))
 
-    ntask = len(ckey)
-    first = np.zeros(ntask, dtype=np.int32)
-    last = np.zeros(ntask, dtype=np.int32)
-    if ntask:
-        first[0] = 1
-        first[1:] = (ckey[1:] != ckey[:-1]).astype(np.int32)
-        last[:-1] = first[1:]
-        last[-1] = 1
-    valid = np.ones(ntask, dtype=np.int32)
-
-    mask_sel = None
-    if mask is not None:
-        if len(mkeys):
-            j = np.clip(np.searchsorted(mkeys, ukey), 0, len(mkeys) - 1)
-            mask_sel = np.where(mkeys[j] == ukey, midx[j], -1).astype(np.int32)
-        else:
-            mask_sel = np.full(len(ukey), -1, dtype=np.int32)
+    order = order[:ntask]
+    a_sel, b_sel = a_sel[order], b_sel[order].to(torch.int32)
+    del order
+    c_sel = torch.cumsum(new[:ntask], 0) - 1
+    cptr = torch.searchsorted(c_sel, torch.arange(nc + 1, device=dev))
+    ukey = key[cptr[:-1]]
+    mask_sel = (None if mask is None
+                else _lookup(mkey, midx, ukey).to(torch.int32))
 
     pad = (-ntask) % pad_to if ntask else 0
-    if pad:
-        a_sel = np.concatenate([a_sel, np.full(pad, a_sel[-1])])
-        b_sel = np.concatenate([b_sel, np.full(pad, b_sel[-1])])
-        c_sel = np.concatenate([c_sel, np.full(pad, c_sel[-1])])
-        first = np.concatenate([first, np.zeros(pad, np.int32)])
-        last = np.concatenate([last, np.zeros(pad, np.int32)])
-        valid = np.concatenate([valid, np.zeros(pad, np.int32)])
-
-    return SpGEMMPlan(a_sel=a_sel.astype(np.int32),
-                      b_sel=b_sel.astype(np.int32),
-                      c_sel=c_sel.astype(np.int32), first=first, last=last,
-                      valid=valid, c_rows=c_rows, c_cols=c_cols,
-                      mask_sel=mask_sel), ntask
+    return SpGEMMPlan(
+        a_sel=torch.cat([a_sel, a_sel[-1:].expand(pad)]),
+        b_sel=torch.cat([b_sel, b_sel[-1:].expand(pad)]),
+        valid=torch.cat([torch.ones(ntask, **i32), torch.zeros(pad, **i32)]),
+        cptr=cptr.to(torch.int32), c_rows=(ukey // nbc).to(torch.int32),
+        c_cols=(ukey % nbc).to(torch.int32), mask_sel=mask_sel, tasks=ntask)
 
 
 def spgemm(A: BSR, B: BSR, sr, mask: Optional[BSR] = None,
            complement: bool = False) -> BSR:
     """Two-phase sparse-times-sparse mxm: C<M> = A (x) B, C stays BSR.
 
-    The symbolic phase (host) plans the block schedule and applies a
-    structural mask block-wise; the numeric phase runs
-    ``kernels.bsr_spgemm.spgemm_blocks`` on the two handles (a CUDA kernel
-    on CUDA tensors, reading the handles' cached entry forms or their
-    tiles; the plain version on CPU tensors), folding the mask's element
-    pattern into each output tile's epilogue. All-zero output tiles are
-    pruned."""
+    The symbolic phase (on the operands' device) plans the block schedule
+    and applies a structural mask block-wise; the numeric phase runs
+    ``kernels.bsr_spgemm.spgemm_blocks`` on the two handles and the plan as
+    it lies (a CUDA kernel on CUDA tensors, reading the handles' cached
+    entry forms or their tiles; the plain version on CPU tensors), folding
+    the mask's element pattern into each output tile's epilogue. All-zero
+    output tiles are pruned, and the output's tile list is laid out on the
+    device from the plan's coordinates."""
     if A.shape[1] != B.shape[0]:
         raise ValueError(f"spgemm inner dims: {A.shape} x {B.shape}")
     if mask is not None and mask.shape != (A.shape[0], B.shape[1]):
@@ -871,14 +903,7 @@ def spgemm(A: BSR, B: BSR, sr, mask: Optional[BSR] = None,
                             device=A.device), shape, A.block)
 
         from repro_torch.kernels import bsr_spgemm as _k  # imports core
-        mask_blocks = None
-        if mask is not None:
-            sel = xfer.to_device(np.clip(plan.mask_sel, 0, None).astype(
-                np.int64), A.device, "mask_sel")
-            present = xfer.to_device(plan.mask_sel >= 0, A.device,
-                                     "mask_sel")
-            mask_blocks = torch.where(present[:, None, None],
-                                      mask.blocks.to(torch.float32)[sel], 0.0)
+        mask_blocks = None if mask is None else plan.mask_tiles(mask)
         cblocks = _k.spgemm_blocks(A, B, plan, sr, mask_blocks=mask_blocks,
                                    complement=complement)
         return BSR.from_blocks_device(plan.c_rows, plan.c_cols, cblocks,

@@ -157,14 +157,16 @@ class QueryServer:
             # delta since server construction); the batched or_and sweep
             # promises this stays 0 — tests/test_transfers.py pins it
             "host_transfers": 0,
-            # copies between host and card and their bytes (core.xfer), and
-            # SpGEMM plan tasks (core.bsr.plan_tasks), deltas likewise
+            # copies between host and card and their bytes (core.xfer),
+            # SpGEMM plan tasks (core.bsr.plan_tasks) and the plans' copies
+            # through core.xfer (core.bsr.plan_host_copies), deltas likewise
             "d2h_bytes": 0, "d2h_copies": 0, "h2d_bytes": 0, "h2d_copies": 0,
-            "plan_tasks": 0,
+            "plan_tasks": 0, "plan_host_copies": 0,
         }
         self._xfer0 = grb.host_transfers()
         self._copies0 = xfer.copies()
         self._tasks0 = _bsr.plan_tasks
+        self._plan_copies0 = _bsr.plan_host_copies
         self._refresh()                     # fail fast on a bad source
 
     # -- submission -----------------------------------------------------------
@@ -408,3 +410,5 @@ class QueryServer:
         for k, v in xfer.copies().items():
             self.stats[k] = v - self._copies0[k]
         self.stats["plan_tasks"] = _bsr.plan_tasks - self._tasks0
+        self.stats["plan_host_copies"] = (_bsr.plan_host_copies
+                                          - self._plan_copies0)

@@ -15,6 +15,8 @@ the TPU.
          built on the device by :func:`entry_form`, cached by the BSR
          handle, ``core.bsr``), for sparse tiles.
 
+Both read the symbolic plan (``core.bsr.spgemm_symbolic``) as it lies on
+the operands' device: its task selections, valid flags and run pointer.
 ``spgemm_blocks(A, B, plan, sr, ...)`` (tiles or BSR handles) launches one
 of the two when its tensors lie on a CUDA device, the entry kernel when
 the operands' fill is under ``entry_max_fill(b)`` and their values are
@@ -27,13 +29,11 @@ the plain version, ``spgemm_blocks_plain`` (the port of ``_spgemm_jnp``).
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import Optional, Union
 
-import numpy as np
 import torch
 
-from repro_torch.core import semiring as S, xfer
+from repro_torch.core import semiring as S
 # the entry forms live with the handle that caches them; re-exported here
 from repro_torch.core.bsr import (BANDS, BSR, SPGEMM_MODES,  # noqa: F401
                                   EntryForm, SpGEMMPlan, entry_counts,
@@ -115,9 +115,9 @@ def spgemm_blocks_plain(Ab: torch.Tensor, Bb: torch.Tensor,
     b = int(Ab.shape[1])
     dev = Ab.device
     y = torch.zeros((plan.nc, b, b), dtype=torch.float32, device=dev)
-    sel = [torch.from_numpy(a.astype(np.int64)).to(dev)
-           for a in (plan.a_sel, plan.b_sel, plan.c_sel)]
-    valid = torch.from_numpy(plan.valid.astype(np.float32)).to(dev)
+    sel = [t.to(dev, torch.int64)
+           for t in (plan.a_sel, plan.b_sel, plan.c_sel())]
+    valid = plan.valid.to(dev, torch.float32)
     step = max(1, _CHUNK_ENTRIES // (b * b))
     for lo in range(0, plan.ntasks, step):
         a = Ab[sel[0][lo:lo + step]].to(torch.float32)
@@ -142,52 +142,24 @@ def spgemm_blocks_plain(Ab: torch.Tensor, Bb: torch.Tensor,
     return y
 
 
-def run_pointer(plan: SpGEMMPlan) -> np.ndarray:
-    """(nc+1,) int32: output tile j's tasks are ptr[j] .. ptr[j+1]. Built
-    from the plan's ``first`` flags; grid padding lies past ptr[nc]."""
-    starts = np.flatnonzero(plan.first.astype(bool))
-    if len(starts) != plan.nc:
-        raise ValueError(f"spgemm plan: {len(starts)} task runs for "
-                         f"{plan.nc} output tiles")
-    return np.append(starts, np.count_nonzero(plan.valid)).astype(np.int32)
-
-
 # -- the two kernels ----------------------------------------------------------
-@dataclasses.dataclass
-class DevicePlan:
-    """A symbolic plan as the kernels read it, int32 on one device: the
-    task selections, the valid flags and the run pointer."""
-    nc: int
-    a_sel: torch.Tensor    # (T,)
-    b_sel: torch.Tensor    # (T,)
-    valid: torch.Tensor    # (T,)
-    cptr: torch.Tensor     # (nc + 1,) see run_pointer
-
-
-def device_plan(plan: SpGEMMPlan, device) -> DevicePlan:
-    """Ship a host plan to ``device``, each array straight from the plan's
-    memory (no host copy first)."""
-    def up(a):
-        return xfer.to_device(np.ascontiguousarray(a, np.int32), device,
-                              "plan")
-
-    return DevicePlan(plan.nc, up(plan.a_sel), up(plan.b_sel),
-                      up(plan.valid), up(run_pointer(plan)))
-
-
-def _check(b, sr, dplan, dev, tensors, mask_blocks, what):
+def _check(b, sr, plan, dev, tensors, mask_blocks, what):
     if sr.mode not in SPGEMM_MODES:
         raise NotImplementedError(f"{what}: mode {sr.mode!r}")
-    tensors = tensors + [dplan.cptr]
+    sched = [plan.a_sel, plan.b_sel, plan.valid, plan.cptr]
+    tensors = tensors + sched
     if not (dev.type == "cuda" and all(t.device == dev for t in tensors)):
         raise ValueError(f"{what}: tensors on "
                          f"{[str(t.device) for t in tensors]}; all must lie "
                          f"on one CUDA device")
+    if not all(t.dtype == torch.int32 and t.is_contiguous() for t in sched):
+        raise ValueError(f"{what}: the plan's tensors must be contiguous "
+                         f"int32")
     if b > MAX_BLOCK:
         raise ValueError(f"{what}: tile side {b} > {MAX_BLOCK}")
     if mask_blocks is not None and \
-            tuple(mask_blocks.shape) != (dplan.nc, b, b):
-        raise ValueError(f"{what}: mask tiles must be ({dplan.nc}, {b}, {b})")
+            tuple(mask_blocks.shape) != (plan.nc, b, b):
+        raise ValueError(f"{what}: mask tiles must be ({plan.nc}, {b}, {b})")
 
 
 def _mask_arg(mask_blocks):
@@ -196,7 +168,7 @@ def _mask_arg(mask_blocks):
 
 
 def spgemm_tile(Ablocks: torch.Tensor, Bblocks: torch.Tensor,
-                dplan: DevicePlan, sr: S.Semiring, *,
+                plan: SpGEMMPlan, sr: S.Semiring, *,
                 mask_blocks: Optional[torch.Tensor] = None,
                 complement: bool = False) -> torch.Tensor:
     """The tile kernel, ``csrc/bsr_spgemm.cu``, on CUDA tiles."""
@@ -205,21 +177,21 @@ def spgemm_tile(Ablocks: torch.Tensor, Bblocks: torch.Tensor,
     dev = Ablocks.device
     tensors = [Ablocks, Bblocks] + ([] if mask_blocks is None
                                     else [mask_blocks])
-    _check(b, sr, dplan, dev, tensors, mask_blocks, "spgemm_tile")
+    _check(b, sr, plan, dev, tensors, mask_blocks, "spgemm_tile")
     if tuple(Bblocks.shape[1:]) != (b, b):
         raise ValueError(f"spgemm_tile: tiles {tuple(Ablocks.shape[1:])} x "
                          f"{tuple(Bblocks.shape[1:])}; the kernel takes "
                          f"square tiles of one side")
-    c = torch.empty((dplan.nc, b, b), dtype=torch.float32, device=dev)
-    if dplan.nc == 0:
+    c = torch.empty((plan.nc, b, b), dtype=torch.float32, device=dev)
+    if plan.nc == 0:
         return c
     M = _mask_arg(mask_blocks)
     A = Ablocks.to(torch.float32).contiguous()
     B = Bblocks.to(torch.float32).contiguous()
     rc = _fn()(A.data_ptr(), B.data_ptr(), None if M is None else M.data_ptr(),
-               dplan.a_sel.data_ptr(), dplan.b_sel.data_ptr(),
-               dplan.valid.data_ptr(), dplan.cptr.data_ptr(), c.data_ptr(),
-               dplan.nc, b, _MODES[sr.mode], int(complement),
+               plan.a_sel.data_ptr(), plan.b_sel.data_ptr(),
+               plan.valid.data_ptr(), plan.cptr.data_ptr(), c.data_ptr(),
+               plan.nc, b, _MODES[sr.mode], int(complement),
                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise KernelError(f"bsr_spgemm: kernel launch failed, cudaError {rc}")
@@ -228,7 +200,7 @@ def spgemm_tile(Ablocks: torch.Tensor, Bblocks: torch.Tensor,
     return c
 
 
-def spgemm_entry(EA: EntryForm, EB: EntryForm, dplan: DevicePlan,
+def spgemm_entry(EA: EntryForm, EB: EntryForm, plan: SpGEMMPlan,
                  sr: S.Semiring, *,
                  mask_blocks: Optional[torch.Tensor] = None,
                  complement: bool = False) -> torch.Tensor:
@@ -239,11 +211,11 @@ def spgemm_entry(EA: EntryForm, EB: EntryForm, dplan: DevicePlan,
     dev = EA.vals.device
     tensors = [EA.vals, EB.vals] + ([] if mask_blocks is None
                                     else [mask_blocks])
-    _check(b, sr, dplan, dev, tensors, mask_blocks, "spgemm_entry")
+    _check(b, sr, plan, dev, tensors, mask_blocks, "spgemm_entry")
     if EB.block != b:
         raise ValueError(f"spgemm_entry: tile sides {b} and {EB.block}")
-    c = torch.empty((dplan.nc, b, b), dtype=torch.float32, device=dev)
-    if dplan.nc == 0:
+    c = torch.empty((plan.nc, b, b), dtype=torch.float32, device=dev)
+    if plan.nc == 0:
         return c
     M = _mask_arg(mask_blocks)
     rc = _fn_entry()(
@@ -251,9 +223,9 @@ def spgemm_entry(EA: EntryForm, EB: EntryForm, dplan: DevicePlan,
         EA.cols.data_ptr(), EA.vals.data_ptr(), EA.bands.data_ptr(),
         EB.base.data_ptr(), EB.row_ptr.data_ptr(), EB.cols.data_ptr(),
         EB.vals.data_ptr(), None if M is None else M.data_ptr(),
-        dplan.a_sel.data_ptr(), dplan.b_sel.data_ptr(),
-        dplan.valid.data_ptr(), dplan.cptr.data_ptr(), c.data_ptr(),
-        dplan.nc, b, _MODES[sr.mode], int(complement),
+        plan.a_sel.data_ptr(), plan.b_sel.data_ptr(),
+        plan.valid.data_ptr(), plan.cptr.data_ptr(), c.data_ptr(),
+        plan.nc, b, _MODES[sr.mode], int(complement),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise KernelError(f"bsr_spgemm_entry: kernel launch failed, "
@@ -309,8 +281,7 @@ def spgemm_blocks(A: Union[torch.Tensor, BSR], B: Union[torch.Tensor, BSR],
     if bb != b or (not handles and tuple(B.shape[1:]) != (b, b)):
         raise ValueError(f"spgemm_blocks: tile sides {b} and {bb}; the "
                          f"kernels take square tiles of one side")
-    dplan = device_plan(plan, dev)
-    _check(b, sr, dplan, dev, tensors, mask_blocks, "spgemm_blocks")
+    _check(b, sr, plan, dev, tensors, mask_blocks, "spgemm_blocks")
     ops = [A] if same else [A, B]
     if handles:
         fill = stored_fill(*ops)
@@ -327,8 +298,8 @@ def spgemm_blocks(A: Union[torch.Tensor, BSR], B: Union[torch.Tensor, BSR],
             picked = "tile (non-finite)"
         else:
             picked = "entry"
-            return spgemm_entry(EA, EB, dplan, sr, mask_blocks=mask_blocks,
+            return spgemm_entry(EA, EB, plan, sr, mask_blocks=mask_blocks,
                                 complement=complement)
     tiles = (A.blocks, B.blocks) if handles else (A, B)
-    return spgemm_tile(*tiles, dplan, sr, mask_blocks=mask_blocks,
+    return spgemm_tile(*tiles, plan, sr, mask_blocks=mask_blocks,
                        complement=complement)

@@ -54,9 +54,10 @@ def bsr_ewise(A, B, mode: str, op=None):
 
 
 def bsr_spgemm(A, B, sr, *, mask=None, complement: bool = False):
-    """BSR x BSR -> BSR: the host symbolic phase, then the numeric phase
-    through ``kernels.bsr_spgemm`` (``core.bsr.spgemm``). ``mask`` may be a
-    BSR, a handle, or a dense tensor (tiled structurally)."""
+    """BSR x BSR -> BSR: the symbolic phase on the operands' device, then
+    the numeric phase through ``kernels.bsr_spgemm`` (``core.bsr.spgemm``).
+    ``mask`` may be a BSR, a handle, or a dense tensor (tiled
+    structurally)."""
     from repro_torch.core.bsr import BSR, spgemm
     A = getattr(A, "store", A)
     B = getattr(B, "store", B)

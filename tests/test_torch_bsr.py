@@ -137,14 +137,36 @@ def test_bsr_union_and_reblock_bit_identical():
     assert_same(jbsr.reblock(a1, 64), tbsr.reblock(t1, 64))
 
 
+def _port_plan_fields(q):
+    """The port's device plan as the JAX package's numpy fields: ``c_sel``
+    from ``SpGEMMPlan.c_sel``, ``first`` / ``last`` from the run
+    pointer."""
+    cptr = q.cptr.cpu().numpy()
+    first = np.zeros(q.ntasks, np.int32)
+    last = np.zeros(q.ntasks, np.int32)
+    first[cptr[:-1]] = 1
+    last[cptr[1:] - 1] = 1
+    out = {f: getattr(q, f).cpu().numpy()
+           for f in ("a_sel", "b_sel", "valid", "c_rows", "c_cols")}
+    out.update(c_sel=q.c_sel().cpu().numpy().astype(np.int32), first=first,
+               last=last)
+    out["mask_sel"] = (None if q.mask_sel is None
+                       else q.mask_sel.cpu().numpy())
+    return out
+
+
 def _plan_equal(p, q):
+    got = _port_plan_fields(q)
     for f in ("a_sel", "b_sel", "c_sel", "first", "last", "valid", "c_rows",
               "c_cols"):
-        a, b = getattr(p, f), getattr(q, f)
+        a, b = getattr(p, f), got[f]
         assert a.dtype == b.dtype and np.array_equal(a, b), f
-    assert (p.mask_sel is None) == (q.mask_sel is None)
+    assert q.cptr.dtype == torch.int32 and int(q.cptr[-1]) == q.tasks
+    assert q.tasks == int(np.count_nonzero(p.valid))
+    assert (p.mask_sel is None) == (got["mask_sel"] is None)
     if p.mask_sel is not None:
-        assert np.array_equal(p.mask_sel, q.mask_sel)
+        assert p.mask_sel.dtype == got["mask_sel"].dtype
+        assert np.array_equal(p.mask_sel, got["mask_sel"])
 
 
 def _spgemm_operands(seed, mask_mode):
@@ -166,6 +188,69 @@ def test_spgemm_symbolic_plans_identical(mask_mode):
     comp = mask_mode == "complement"
     _plan_equal(jbsr.spgemm_symbolic(jA, jB, jM, comp),
                 tbsr.spgemm_symbolic(tA, tB, tM, comp))
+
+
+def _no_entries(n, m):
+    e = np.zeros(0, np.int64)
+    return both(e, e, None, (n, m), 32)
+
+
+def _edge_operands(case):
+    """(A, B, mask, complement, pad_to) of each edge case, JAX and port:
+    an operand or the mask with no valid tile (padding tiles only), a
+    wide grid padding, one handle as both operands, and every tile of a
+    4 x 4 grid occupied (the s15 triangle call's shape in small)."""
+    rng = np.random.default_rng(17)
+    ra, ca, va = coo(rng, 150, 110, 500, range(32, 64))
+    rb, cb, vb = coo(rng, 110, 90, 400)
+    rm, cm, _ = coo(rng, 150, 90, 2500)
+    A, B, M = (both(ra, ca, va, (150, 110), 32),
+               both(rb, cb, vb, (110, 90), 32),
+               both(rm, cm, None, (150, 90), 32))
+    if case == "empty_a":
+        return _no_entries(150, 110), B, M, False, 8
+    if case == "empty_b":
+        return A, _no_entries(110, 90), M, False, 8
+    if case in ("empty_mask", "empty_mask_complement"):
+        return A, B, _no_entries(150, 90), case.endswith("complement"), 8
+    if case == "pad_to_64":
+        return A, B, M, False, 64
+    r, c, v = coo(rng, 128, 128, 6000)
+    F = both(r, c, v, (128, 128), 32)
+    assert F[1].tiles_held == F[1].nnzb == 16
+    if case == "a_times_a":
+        return F, F, None, False, 8
+    assert case == "every_tile_occupied"
+    return F, F, F, False, 8
+
+
+EDGE_CASES = ["empty_a", "empty_b", "empty_mask", "empty_mask_complement",
+              "pad_to_64", "a_times_a", "every_tile_occupied"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_spgemm_symbolic_edge_cases_identical(case):
+    (jA, tA), (jB, tB), M, comp, pad_to = _edge_operands(case)
+    jM, tM = (None, None) if M is None else M
+    want = jbsr.spgemm_symbolic(jA, jB, jM, comp, pad_to=pad_to)
+    got = tbsr.spgemm_symbolic(tA, tB, tM, comp, pad_to=pad_to)
+    _plan_equal(want, got)
+    assert got.ntasks % pad_to == 0
+
+
+def test_spgemm_plan_counts_its_host_copies_and_tasks():
+    """A plan makes two copies through core.xfer (the pairs' count, then the
+    tasks' and output tiles'), and a masked product no others; plan_tasks
+    counts the tasks before grid padding."""
+    _, tA, _, tB, _, tM = _spgemm_operands(3, "mask")
+    c0, t0 = tbsr.plan_host_copies, tbsr.plan_tasks
+    plan = tbsr.spgemm_symbolic(tA, tB, tM, pad_to=64)
+    assert tbsr.plan_host_copies - c0 == 2
+    assert tbsr.plan_tasks - t0 == plan.tasks == int(plan.valid.sum())
+    assert plan.tasks < plan.ntasks
+    c0 = tbsr.plan_host_copies
+    tbsr.spgemm(tA, tB, TS.PLUS_PAIR, mask=tM)
+    assert tbsr.plan_host_copies - c0 == 2
 
 
 @pytest.mark.parametrize("srname", ["plus_times", "or_and", "plus_pair",
@@ -276,10 +361,11 @@ def test_spgemm_plain_chunks_agree(monkeypatch):
 def test_run_pointer_bounds_each_output_tile():
     _, tA, _, tB, _, _ = _spgemm_operands(7, "none")
     plan = tbsr.spgemm_symbolic(tA, tB)
-    ptr = tbsr_spgemm.run_pointer(plan)
+    ptr = plan.cptr.numpy()
     assert len(ptr) == plan.nc + 1 and ptr[-1] == int(plan.valid.sum())
+    c_sel = plan.c_sel().numpy()
     for j in range(plan.nc):
-        run = plan.c_sel[ptr[j]:ptr[j + 1]]
+        run = c_sel[ptr[j]:ptr[j + 1]]
         assert (run == j).all() and len(run) > 0
 
 

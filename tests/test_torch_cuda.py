@@ -24,6 +24,9 @@ Everything compared is integer or boolean: ``torch.equal``, bit for bit,
 except the BSR kernels' weighted modes and the float algorithms, PageRank
 and betweenness (tolerance stated beside them).
 """
+import dataclasses
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -379,11 +382,7 @@ def test_bsr_spgemm_kernel_matches_plain(srname, block, no_tf32):
     sr = S.get(srname)
     for mask, comp in ((None, False), (Mk, False), (Mk, True)):
         plan = bsr_mod.spgemm_symbolic(A, B, mask, comp)
-        mb = None
-        if mask is not None:
-            sel = torch.from_numpy(np.clip(plan.mask_sel, 0, None)).long()
-            mb = mask.blocks[sel.cuda()] * torch.from_numpy(
-                plan.mask_sel >= 0).float().cuda()[:, None, None]
+        mb = None if mask is None else plan.mask_tiles(mask)
         before = bsr_spgemm.launches
         got = bsr_spgemm.spgemm_blocks(A.blocks, B.blocks, plan, sr,
                                        mask_blocks=mb, complement=comp)
@@ -404,7 +403,7 @@ def test_bsr_spgemm_kernel_matches_plain(srname, block, no_tf32):
 SPGEMM_SR = ["plus_times", "or_and", "plus_pair", "plus_first"]
 
 
-def _spgemm_inputs(block, seed, hub=False):
+def _spgemm_inputs(block, seed, hub=False, device="cuda"):
     """A (n x k) with an empty band of block-rows, B (k x m), a mask; n, k,
     m ragged. ``hub``: tile (0, 0) of A gets a full row and a full column,
     and B's first row of tiles a full row, so a tile row holds b entries
@@ -422,18 +421,14 @@ def _spgemm_inputs(block, seed, hub=False):
         cb = np.concatenate([cb, full])
         vb = np.concatenate([vb, rng.uniform(0.5, 2.0, size=block)])
     rm, cm, _ = _bsr_coo(rng, n, m, 60 * block)
-    A = BSR.from_coo(ra, ca, va, (n, k), block=block, device="cuda")
-    B = BSR.from_coo(rb, cb, vb, (k, m), block=block, device="cuda")
-    Mk = BSR.from_coo(rm, cm, None, (n, m), block=block, device="cuda")
+    A = BSR.from_coo(ra, ca, va, (n, k), block=block, device=device)
+    B = BSR.from_coo(rb, cb, vb, (k, m), block=block, device=device)
+    Mk = BSR.from_coo(rm, cm, None, (n, m), block=block, device=device)
     return A, B, Mk
 
 
 def _mask_tiles(plan, mask):
-    if mask is None:
-        return None
-    sel = torch.from_numpy(np.clip(plan.mask_sel, 0, None)).long()
-    return mask.blocks[sel.cuda()] * torch.from_numpy(
-        plan.mask_sel >= 0).float().cuda()[:, None, None]
+    return None if mask is None else plan.mask_tiles(mask)
 
 
 @pytest.mark.parametrize("srname", SPGEMM_SR)
@@ -451,13 +446,12 @@ def test_bsr_spgemm_entry_matches_plain_and_tile(block, hub, mask_mode,
     mb = _mask_tiles(plan, mask)
     sr = S.get(srname)
     EA, EB = bsr_spgemm.entry_form(A.blocks), bsr_spgemm.entry_form(B.blocks)
-    dp = bsr_spgemm.device_plan(plan, "cuda")
     before = (bsr_spgemm.launches, bsr_spgemm.launches_entry)
-    got = bsr_spgemm.spgemm_entry(EA, EB, dp, sr, mask_blocks=mb,
+    got = bsr_spgemm.spgemm_entry(EA, EB, plan, sr, mask_blocks=mb,
                                   complement=comp)
-    again = bsr_spgemm.spgemm_entry(EA, EB, dp, sr, mask_blocks=mb,
+    again = bsr_spgemm.spgemm_entry(EA, EB, plan, sr, mask_blocks=mb,
                                     complement=comp)
-    tile = bsr_spgemm.spgemm_tile(A.blocks, B.blocks, dp, sr,
+    tile = bsr_spgemm.spgemm_tile(A.blocks, B.blocks, plan, sr,
                                   mask_blocks=mb, complement=comp)
     torch.cuda.synchronize()
     assert (bsr_spgemm.launches, bsr_spgemm.launches_entry) == (
@@ -476,6 +470,99 @@ def test_bsr_spgemm_entry_form_on_cuda_equals_cpu():
     for f in ("base", "row_ptr", "rows", "cols", "vals", "bands"):
         assert torch.equal(getattr(fc, f).cpu(), getattr(fh, f)), f
     assert fc.entries == fh.entries
+
+
+# -- the symbolic plan on the card ---------------------------------------------
+PLAN_TENSORS = ("a_sel", "b_sel", "valid", "cptr", "c_rows", "c_cols")
+
+
+def _plan_on(plan, device):
+    """``plan`` with its tensors copied to ``device``: the route that plans
+    on the host and copies the plan up."""
+    moved = {f: getattr(plan, f).to(device) for f in PLAN_TENSORS}
+    return dataclasses.replace(
+        plan, **moved,
+        mask_sel=None if plan.mask_sel is None else plan.mask_sel.to(device))
+
+
+@pytest.mark.parametrize("mask_mode", ["none", "mask", "complement"])
+@pytest.mark.parametrize("block,hub", [(16, False), (32, False), (64, True),
+                                       (128, True)])
+def test_bsr_spgemm_plan_on_cuda_equals_cpu(block, hub, mask_mode):
+    """The plan built on the card is the one built on the host for the same
+    handles, tensor for tensor (the CPU plan is held to the JAX package's
+    by the CPU tests)."""
+    comp = mask_mode == "complement"
+    plans = []
+    for device in ("cuda", "cpu"):
+        A, B, Mk = _spgemm_inputs(block, block + 1, hub, device=device)
+        plans.append(bsr_mod.spgemm_symbolic(
+            A, B, None if mask_mode == "none" else Mk, comp, pad_to=64))
+    got, want = plans
+    assert got.tasks == want.tasks > 0 and got.ntasks == want.ntasks
+    for f in PLAN_TENSORS + ("mask_sel",):
+        g, w = getattr(got, f), getattr(want, f)
+        assert (g is None) == (w is None), f
+        if w is not None:
+            assert g.device.type == "cuda" and g.dtype == w.dtype, f
+            assert torch.equal(g.cpu(), w), f
+
+
+@pytest.mark.parametrize("srname", ["plus_pair", "plus_times"])
+@pytest.mark.parametrize("mask_mode", ["none", "mask", "complement"])
+def test_bsr_spgemm_on_cuda_equals_the_host_planned_route(mask_mode, srname,
+                                                          no_tf32):
+    """``core.bsr.spgemm`` on the card (plan and output tile list laid out
+    there) gives, bit for bit, the handle of the route that planned on the
+    host, copied the plan up and laid the output out from host
+    coordinates."""
+    A, B, Mk = _spgemm_inputs(128, 7, hub=True)
+    hA, hB, hM = _spgemm_inputs(128, 7, hub=True, device="cpu")
+    comp = mask_mode == "complement"
+    mask, hmask = (None, None) if mask_mode == "none" else (Mk, hM)
+    sr = S.get(srname)
+    got = bsr_mod.spgemm(A, B, sr, mask, comp)
+    plan = _plan_on(bsr_mod.spgemm_symbolic(hA, hB, hmask, comp), "cuda")
+    tiles = bsr_spgemm.spgemm_blocks(A, B, plan, sr,
+                                     mask_blocks=_mask_tiles(plan, mask),
+                                     complement=comp)
+    want = BSR.from_blocks_device(plan.c_rows.cpu().numpy(),
+                                  plan.c_cols.cpu().numpy(), tiles,
+                                  (A.shape[0], B.shape[1]), A.block)
+    assert got.nnz == want.nnz > 0
+    for f in ("blocks", "block_rows", "block_cols", "first", "last", "valid",
+              "row_ptr"):
+        assert getattr(got, f).device.type == "cuda", f
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_bsr_spgemm_call_copies_nothing_up():
+    """A masked SpGEMM on the card copies nothing to it: no ``h2d`` copy at
+    all (none tagged ``plan`` or ``mask_sel``); its plan reads two counts
+    through core.xfer, 24 bytes."""
+    from repro_torch import tracing
+    from repro_torch.core import xfer
+    A, B, Mk = _spgemm_inputs(128, 9, hub=True)
+    bsr_mod.spgemm(A, B, S.PLUS_PAIR, Mk)        # the entry forms, once
+    torch.cuda.synchronize()
+    was = tracing.enabled()
+    tracing.clear()
+    tracing.enable()
+    try:
+        c0, p0 = xfer.copies(), bsr_mod.plan_host_copies
+        for comp in (False, True):
+            bsr_mod.spgemm(A, B, S.PLUS_PAIR, Mk, comp)
+        torch.cuda.synchronize()
+        c1, recs = xfer.copies(), tracing.records()
+    finally:
+        tracing.clear()
+        (tracing.enable if was else tracing.disable)()
+    assert not [r for r in recs if r.name == "h2d"
+                and r.attrs["tag"] in ("plan", "mask_sel")]
+    assert c1["h2d_copies"] == c0["h2d_copies"]
+    assert c1["h2d_bytes"] == c0["h2d_bytes"]
+    assert bsr_mod.plan_host_copies - p0 == 4
+    assert c1["d2h_bytes"] - c0["d2h_bytes"] == 2 * (8 + 16)
 
 
 @pytest.mark.parametrize("limit,variant", [(0.0, "tile"), (1.01, "entry")])
@@ -779,10 +866,9 @@ def test_bsr_spgemm_non_finite_payload_takes_the_tile_kernel(bad, srname,
     want = bsr_spgemm.spgemm_blocks_plain(A.blocks, B.blocks, plan, sr)
     assert torch.isnan(want).any()
     if srname == "plus_first":
-        dp = bsr_spgemm.device_plan(plan, "cuda")
-        want = bsr_spgemm.spgemm_tile(A.blocks, B.blocks, dp, sr)
+        want = bsr_spgemm.spgemm_tile(A.blocks, B.blocks, plan, sr)
         skipped = bsr_spgemm.spgemm_entry(A.entry_form(), B.entry_form(),
-                                          dp, sr)
+                                          plan, sr)
         assert int(torch.isnan(skipped).sum()) < int(torch.isnan(want).sum())
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
     # the tile stacks take the same guard
@@ -1232,13 +1318,22 @@ def test_delta_folds_free_the_card_after_the_call(fmt):
     h = _delta_pair(fmt, "cuda")
     algo.triangle_count(h)                  # the base's forms, built once
     torch.cuda.synchronize()
-    level = torch.cuda.memory_allocated()
-    tri = int(algo.triangle_count(h))
-    nv = algo.ktruss(h, 3).nvals
-    nv += grb.ewise_add(h, h, S.PLUS).nvals
-    torch.cuda.synchronize()
+    # earlier tests' cyclic garbage (a delta handle and its linked
+    # transpose) holds card memory too: free it now, and let no collection
+    # free more of it while the level is compared
+    gc.collect()
+    gc.disable()
+    try:
+        level = torch.cuda.memory_allocated()
+        tri = int(algo.triangle_count(h))
+        nv = algo.ktruss(h, 3).nvals
+        nv += grb.ewise_add(h, h, S.PLUS).nvals
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
     assert tri >= 0 and nv > 0
-    assert torch.cuda.memory_allocated() == level
+    assert after == level
 
 
 def test_database_read_with_a_kernel_that_cannot_load_raises(monkeypatch):

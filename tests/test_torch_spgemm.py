@@ -131,7 +131,9 @@ def _walk(EA, EB, plan, sr, mask_blocks, complement):
     band of rows, the tasks of the run whose A tile has an entry in the
     band, A's entries of the band in (row, column) order, B's row k."""
     b = EA.block
-    ptr = K.run_pointer(plan)
+    ptr = plan.cptr.numpy()
+    a_sel, b_sel, valid = (plan.a_sel.numpy(), plan.b_sel.numpy(),
+                           plan.valid.numpy())
     out = np.zeros((plan.nc, b, b), np.float32)
     mk = 0 if mask_blocks is None else (2 if complement else 1)
     arows, acols = EA.rows.numpy(), EA.cols.numpy()
@@ -145,8 +147,8 @@ def _walk(EA, EB, plan, sr, mask_blocks, complement):
             if r1 <= r0 or (mk == 1 and not m[r0:r1].any()):
                 continue
             for t in range(ptr[ct], ptr[ct + 1]):
-                a, bt = plan.a_sel[t], plan.b_sel[t]
-                if not plan.valid[t] or not (int(EA.bands[a]) >> q) & 1:
+                a, bt = a_sel[t], b_sel[t]
+                if not valid[t] or not (int(EA.bands[a]) >> q) & 1:
                     continue
                 base = int(EA.base[a])
                 for e in range(base + int(EA.row_ptr[a, r0]),
@@ -188,11 +190,7 @@ def test_entry_walk_matches_plain(mask_mode, srname):
     comp = mask_mode == "complement"
     plan = tbsr.spgemm_symbolic(A, B, mask, comp, pad_to=64)
     assert (plan.valid == 0).any()
-    mb = None
-    if mask is not None:
-        sel = torch.from_numpy(np.clip(plan.mask_sel, 0, None)).long()
-        mb = M.blocks[sel] * torch.from_numpy(
-            plan.mask_sel >= 0).float()[:, None, None]
+    mb = None if mask is None else plan.mask_tiles(M)
     sr = TS.get(srname)
     got = _walk(K.entry_form(A.blocks), K.entry_form(B.blocks), plan, sr,
                 mb, comp)
@@ -236,12 +234,11 @@ def test_kernel_entry_points_reject_cpu_tensors():
     A = _operand(32, "random", 8)
     plan = tbsr.spgemm_symbolic(A, A)
     E = K.entry_form(A.blocks)
-    dp = K.device_plan(plan, "cpu")
     before = (K.launches, K.launches_entry, K.launches_tile)
     with pytest.raises(ValueError):
-        K.spgemm_entry(E, E, dp, TS.OR_AND)
+        K.spgemm_entry(E, E, plan, TS.OR_AND)
     with pytest.raises(ValueError):
-        K.spgemm_tile(A.blocks, A.blocks, dp, TS.OR_AND)
+        K.spgemm_tile(A.blocks, A.blocks, plan, TS.OR_AND)
     assert (K.launches, K.launches_entry, K.launches_tile) == before
 
 

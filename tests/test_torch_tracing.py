@@ -183,6 +183,12 @@ def test_triangles_call_counts_its_plan_tasks(traced):
     assert plan.attrs == {"tasks": tasks, "tiles": want.nc}
     assert mult.attrs == plan.attrs
     assert srv.stats["plan_tasks"] == tasks
+    # the plan's two counts, read through core.xfer inside its span
+    assert srv.stats["plan_host_copies"] == 2
+    served = recs.index(plan)
+    reads = [r for r in recs if r.name == "d2h" and r.attrs["tag"] == "plan"
+             and r.rid == plan.rid]
+    assert len(reads) == 2 and all(r.parent == served for r in reads)
 
 
 def test_a_collection_is_a_gc_span_under_the_span_it_struck(traced):
@@ -233,7 +239,7 @@ def test_copy_counters_stay_zero_on_a_cpu_graph(traced):
     srv, _ = _flush(_graph())
     assert xfer.copies() == c0
     for k in ("d2h_bytes", "d2h_copies", "h2d_bytes", "h2d_copies",
-              "plan_tasks", "host_transfers"):
+              "plan_tasks", "plan_host_copies", "host_transfers"):
         assert srv.stats[k] == 0, k
     x = np.arange(6, dtype=np.int32)
     t = xfer.to_device(x, "cpu", "probe")
