@@ -11,7 +11,9 @@ at scale 16 (the float hop loop, kernel ``bsr_mxm``) and BSR at scale 14
 ``bsr_mxm`` per batch); then the GraphChallenge analytics on an undirected
 Graph500 R-MAT scale-15 BSR graph through ``repro_torch.algorithms``:
 ``triangle_count``, ``ktruss(k=4)``, ``similarity_matrix`` and
-``similarity`` (kernels ``bsr_spgemm``, ``bsr_ewise``, ``bsr_mxm``).
+``similarity`` (kernels ``bsr_spgemm_dot``, the masked dot SpGEMM that
+``core.grb``'s route rule picks at Graph500 fill, ``bsr_ewise``,
+``bsr_mxm``).
 Each BSR kernel has two variants: an entry kernel (stored entries) and a
 tile kernel (whole tiles), picked by the operands' fill against a
 crossover table measured by this script's fill sweeps; Graph500 tiles take
@@ -421,8 +423,8 @@ def main() -> int:
     from repro_torch.engine import QueryServer
     from repro_torch.graph.datagen import rmat_edges, rmat_graph
     from repro_torch.graph.graph import GraphBuilder, from_arrays
-    from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_ewise,
-                                     bsr_mxm, bsr_spgemm, build)
+    from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_dot,
+                                     bsr_ewise, bsr_mxm, bsr_spgemm, build)
     from repro_torch.engine.server import MAX_WIDTH
     from repro_torch.query import execute
     from repro_torch.query.executor import ExecutionContext
@@ -435,7 +437,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     counted = {"ell_mxv_packed": bitmap_mxv, "bitadj_mxv_packed": bitadj_mxv,
                "bsr_mxm": bsr_mxm, "bsr_spgemm": bsr_spgemm,
-               "bsr_ewise": bsr_ewise}
+               "bsr_ewise": bsr_ewise, "bsr_dot": bsr_dot}
 
     def launches_now():
         return {k: mod.launches for k, mod in counted.items()}
@@ -787,6 +789,63 @@ def main() -> int:
                     A, B, mask, complement)),
                 spgemm_ms=wall_ms(torch, lambda: bsr_mod.spgemm(
                     A, B, sr, mask, complement)))
+        emit_phase(**row)
+        return row
+
+    def dot_case(A, B, mask, sr, tag, timed=False):
+        """The masked dot SpGEMM's kernel (``kernels.bsr_dot``) on the forms
+        ``core.bsr.spgemm_dot`` hands it (A's row CSR, the row CSR of B's
+        transpose, the mask's entries) against its plain version, bit for
+        bit (0/1 modes, integer weights); then the whole ``spgemm_dot``
+        against the kernel's values. Timed: the kernel, the plain version,
+        the whole route by the host clock, and the card's bound: the
+        operands' row CSRs, the mask's entries and the output read or
+        written once, and one lookup (an int32 operation) per walked
+        element (the work: the shorter list's length, summed over the
+        mask's entries)."""
+        Ac = bsr_mod.nonzero_csr(A.row_csr())
+        Bc = bsr_mod.transpose_csr(bsr_mod.nonzero_csr(B.row_csr()),
+                                   B.shape)
+        M = bsr_mod.nonzero_csr(mask.row_csr())
+        m_rows = bsr_mod.csr_rows(M)
+
+        def kernel():
+            return bsr_dot.masked_dot(Ac, Bc, m_rows, M.cols, sr)
+
+        def plain():
+            return bsr_dot.masked_dot_plain(Ac, Bc, m_rows, M.cols, sr)
+
+        got, work = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"bsr_spgemm_dot == plain ({tag}, {sr.name})")
+        C = bsr_mod.spgemm_dot(A, B, sr, mask)
+        r_, c_, v_ = C.to_coo()
+        m = mask.shape[1]
+        keep = (got != 0).cpu().numpy()
+        key = (m_rows.cpu().numpy() * m + M.cols.cpu().numpy())[keep]
+        got_key = r_ * m + c_
+        order = np.argsort(got_key)
+        check(C.nnz == len(key) and np.array_equal(got_key[order], key)
+              and np.array_equal(v_[order], got.cpu().numpy()[keep]),
+              f"spgemm_dot holds the kernel's nonzero values ({tag})")
+        row = dict(phase="kernel", kernel="bsr_spgemm_dot", shape=tag,
+                   card=card, semiring=sr.name, mask_entries=M.entries,
+                   a_entries=Ac.entries, b_entries=Bc.entries, work=work,
+                   output_nnz=C.nnz, equal=True,
+                   max_abs_err=abs_err(got, want))
+        del C, want
+        if timed:
+            n = A.shape[0]
+            nbytes = (8 * (n + 1) + 8 * Ac.entries + 8 * (B.shape[1] + 1)
+                      + 8 * Bc.entries + 12 * M.entries)
+            b_ms, b_by = bound(nbytes, work)
+            row.update(kernel_ms=time_ms(torch, kernel),
+                       plain_ms=time_ms(torch, plain, reps=2, warmup=0),
+                       spgemm_ms=wall_ms(torch, lambda: bsr_mod.spgemm_dot(
+                           A, B, sr, mask)),
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
         emit_phase(**row)
         return row
 
@@ -1527,14 +1586,14 @@ def main() -> int:
     emit_phase(phase="graph_analytics", card=card, scale=ANALYTICS_SCALE, n=n,
                nnz=A.nvals, block=A.store.block,
                tiles=int(A.store.valid.sum()),
-               gb_per_handle=A.store.blocks.numel() * 4 / 1e9,
+               gb_per_handle=A.store.nnzb * A.store.block ** 2 * 4 / 1e9,
                handles=4, build_s=build_s, oracle_s=oracle_s,
                memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
-    # kernel 4 at the triangle path's shape: the support C<A> = A (x) A
-    # over plus_pair, as triangle_count and k-truss round 1 plan it
+    # kernel 4 at the triangle path's shape, the tile route that the dot
+    # route replaces there: the support C<A> = A (x) A over plus_pair
     tri_row = spgemm_case(A.store, A.store, S.PLUS_PAIR,
                           f"scale-{ANALYTICS_SCALE} support C<A> = A x A "
-                          f"(the triangle path's)", mask=A.store, timed=True,
+                          f"(the tile route's)", mask=A.store, timed=True,
                           whole=True)
     tri_row["library_ms"], why = library_spgemm(torch, A.store, masked=True)
     emit_phase(phase="library", kernel="bsr_spgemm", card=card,
@@ -1542,6 +1601,19 @@ def main() -> int:
                call="torch.sparse.mm of two CSR tensors, then * A as COO "
                "(cuSPARSE SpGEMM, then the mask)",
                library_ms=tri_row["library_ms"], reason=why)
+    # the masked dot SpGEMM at the same shape, the path's: plus_pair on A,
+    # and plus_times on integer weights 1-4 over A's pattern (exact sums)
+    rr, cc, _ = A.store.to_coo()
+    W = BSR.from_coo(rr, cc, (1 + (rr * 7 + cc * 3) % 4).astype(np.float32),
+                     A.shape, block=A.store.block, device=DEVICE)
+    dot_row = dot_case(A.store, A.store, A.store, S.PLUS_PAIR,
+                       f"scale-{ANALYTICS_SCALE} support C<A> = A x A "
+                       f"(the triangle path's)", timed=True)
+    dot_case(W, W, A.store, S.PLUS_TIMES, f"scale-{ANALYTICS_SCALE} "
+             f"C<A> = W x W, weights 1-4 on A's pattern")
+    dot_row["library_ms"] = tri_row["library_ms"]
+    del rr, cc, W
+    dot_path = [0]          # the dot kernel's launches on the analytics path
 
     def read_launches(phase_needs):
         """Launches since the last zero, checked against what the phase
@@ -1560,6 +1632,7 @@ def main() -> int:
                   f"the entry kernel is the path's")
         for k in path:
             path[k] += var[k]
+        dot_path[0] += got["bsr_dot"]
         return {k: got[k] for k in phase_needs}
 
     # triangles
@@ -1568,23 +1641,24 @@ def main() -> int:
     t0 = time.perf_counter()
     tri = int(algo.triangle_count(rel))
     tri_s = time.perf_counter() - t0
-    launched = read_launches({"bsr_spgemm": 1})
+    launched = read_launches({"bsr_dot": 1})
     check(tri == tri_want, f"triangles: {tri}, scipy {tri_want}")
-    check(launched["bsr_spgemm"] == 1, "triangles: one bsr_spgemm launch")
+    check(launched["bsr_dot"] == 1, "triangles: one bsr_spgemm_dot launch")
     emit_phase(phase="triangles", card=card, count=tri, scipy=tri_want,
                ms=1e3 * tri_s, plus_sum=6 * tri, past_2_24=6 * tri > 2 ** 24,
                launches=launched)
 
-    # k-truss, k = 4, each round's steps timed by wrappers around the plan,
-    # the two kernels and the select (synchronised)
-    # each hook keeps its step's seconds and a count read off its result
-    # (the plan's tasks, the select's surviving entries), not the result
-    steps = {"spgemm_symbolic": [], "spgemm_blocks": [], "map_entries": [],
+    # k-truss, k = 4, each round's steps timed by wrappers around the
+    # masked dot SpGEMM, its kernel, the select's kernel and the select
+    # (synchronised); each hook keeps its step's seconds and a count read
+    # off its result (the support's entries, the kernel's work, the
+    # select's surviving entries), not the result
+    steps = {"spgemm_dot": [], "masked_dot": [], "map_entries": [],
              "select_stored": []}
     # the select's kernel is the entry kernel at Graph500 fill
     # (read_launches checks it)
-    hooks = [(bsr_mod, "spgemm_symbolic", lambda p_: int(p_.valid.sum())),
-             (bsr_spgemm, "spgemm_blocks", lambda _: None),
+    hooks = [(bsr_mod, "spgemm_dot", lambda C_: C_.nnz),
+             (bsr_dot, "masked_dot", lambda out_: out_[1]),
              (bsr_ewise, "map_entries", lambda _: None),
              (bsr_mod, "select_stored", lambda sel: sel.nnz)]
     saved = [getattr(mod, name) for mod, name, _ in hooks]
@@ -1611,14 +1685,14 @@ def main() -> int:
         for (mod, name, _), fn in zip(hooks, saved):
             setattr(mod, name, fn)
     truss_s = time.perf_counter() - t0
-    nrounds = len(steps["spgemm_symbolic"])
-    launched = read_launches({"bsr_spgemm": nrounds, "bsr_ewise": nrounds})
-    check(launched["bsr_spgemm"] == nrounds,
-          f"ktruss: {launched['bsr_spgemm']} SpGEMMs for {nrounds} rounds")
-    per_round = [dict(tasks=tasks, symbolic_s=ts, spgemm_ms=1e3 * tk,
-                      select_ms=1e3 * te, surviving=kept)
-                 for (ts, tasks), (tk, _), (te, _), (_, kept) in zip(
-                     *(steps[k] for k in ("spgemm_symbolic", "spgemm_blocks",
+    nrounds = len(steps["spgemm_dot"])
+    launched = read_launches({"bsr_dot": nrounds, "bsr_ewise": nrounds})
+    check(launched["bsr_dot"] == nrounds,
+          f"ktruss: {launched['bsr_dot']} dot SpGEMMs for {nrounds} rounds")
+    per_round = [dict(support=sup_, work=work, spgemm_ms=1e3 * ts,
+                      kernel_ms=1e3 * tk, select_ms=1e3 * te, surviving=kept)
+                 for (ts, sup_), (tk, work), (te, _), (_, kept) in zip(
+                     *(steps[k] for k in ("spgemm_dot", "masked_dot",
                                           "map_entries", "select_stored")))]
     del steps
     r_, c_, v_ = T.store.to_coo()
@@ -1651,7 +1725,7 @@ def main() -> int:
     Ssrc = algo.similarity(rel, sources, "jaccard")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launched = read_launches({"bsr_mxm": 1, "bsr_spgemm": 1, "bsr_ewise": 1})
+    launched = read_launches({"bsr_mxm": 1, "bsr_dot": 1, "bsr_ewise": 1})
     r_, c_, v_ = J.store.to_coo()
     sc = sup.tocoo()
     key, skey = r_ * n + c_, sc.row.astype(np.int64) * n + sc.col
@@ -1694,7 +1768,7 @@ def main() -> int:
     res_s = execute(g, f"CALL algo.similarity(rel: KNOWS, sources: [{ids}]) "
                        f"YIELD node1, node2, score")
     t2 = time.perf_counter()
-    launched = read_launches({"bsr_spgemm": 1, "bsr_mxm": 1})
+    launched = read_launches({"bsr_dot": 1, "bsr_mxm": 1})
     check(res_t.error is None and res_t.rows == [(tri,)],
           f"CALL algo.triangles: {res_t.rows[:1]} {res_t.error}, direct {tri}")
     want_rows = sorted((int(s_), int(i), float(got_s[i, j]))
@@ -1803,7 +1877,11 @@ def main() -> int:
                             "src/repro/kernels/bsr_ewise.py:140"),
         "bsr_ewise_tile": (ew_row, "tile", "bsr_ewise.cu",
                            "src/repro/kernels/bsr_ewise.py:140"),
+        # the masked products' route at Graph500 fill, in place of kernel 4
+        "bsr_spgemm_dot": (dot_row, None, "bsr_spgemm_dot.cu",
+                           "src/repro/kernels/bsr_spgemm.py:161"),
     }
+    dot_row["launches"] = dot_path[0]
     # the yardsticks: cuSPARSE SpMM for the entry kernel of bsr_mxm,
     # PyTorch's BSR product (the same whole-tile work) for its tile kernel
     library = {"bsr_mxm_tile": mxm_row["bsr_library_ms"]}
@@ -2942,14 +3020,17 @@ def write_path_cells(torch, h):
         labels = algo.wcc(Ad).cpu().numpy()
         check(len(np.unique(labels)) == comp.max() + 1,
               "algo_delta wcc: component count != scipy's")
-        check(results["triangle_count"]["launches"].get("bsr_spgemm", 0) > 0,
-              "algo_delta: bsr_spgemm never launched")
+        spgemm_ = ("bsr_spgemm", "bsr_dot")    # by core.grb's route rule
+        check(sum(results["triangle_count"]["launches"].get(k, 0)
+                  for k in spgemm_) > 0,
+              "algo_delta: no SpGEMM kernel launched")
         T, kt_s, klaunch, kvar = counted(lambda: algo.ktruss(Ad, 4))
         Tc = algo.ktruss(Ac, 4)
         check(torch.equal(T.to_dense(), Tc.to_dense()),
               "algo_delta ktruss(4): delta != compacted")
-        check(klaunch["bsr_ewise"] > 0 and klaunch["bsr_spgemm"] > 0,
-              "algo_delta ktruss: bsr_ewise / bsr_spgemm never launched")
+        check(klaunch["bsr_ewise"] > 0
+              and sum(klaunch[k] for k in spgemm_) > 0,
+              "algo_delta ktruss: bsr_ewise / no SpGEMM kernel launched")
         results["ktruss_4"] = {"delta_s": kt_s, "edges": T.nvals,
                                "launches": {k: v for k, v in klaunch.items()
                                             if v},

@@ -2,9 +2,12 @@
 GraphChallenge kernel). Port of ``repro.algorithms.triangles``.
 
 Requires a symmetric (undirected) adjacency. On BSR both operands stay
-sparse: ``grb.mxm`` runs the two-phase SpGEMM (``bsr_spgemm`` on the card)
-with the structural mask <A> pruning output tiles, then ``grb.reduce``
-sums the stored counts. ELL handles reblock to BSR through their entry
+sparse: ``grb.mxm`` takes its route rule (``grb.dot_route_ok``), the
+masked dot SpGEMM on sparse tiles (``bsr_spgemm_dot`` on the card: one
+count per entry of the mask <A>, from A's rows and its stored transpose's
+rows, no tile made) or the two-phase tile SpGEMM (``bsr_spgemm``) with <A>
+pruning output tiles; then ``grb.reduce`` sums the stored counts (the dot
+route's as entries). ELL handles reblock to BSR through their entry
 list first (the JAX package multiplies them densely; the count is the
 same), a delta handle takes its materialization, and a dense handle runs
 the dense product. BitELL and ShardedBitELL handles skip the semiring:

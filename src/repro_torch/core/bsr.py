@@ -27,10 +27,14 @@ The handle also caches, built once on the device by torch glue, its
 stored entries in two forms: ``entry_form()`` (and ``payload_form()``,
 which also keeps the tiles' -0.0s), a CSR per tile, which SpGEMM's and the
 element-wise family's entry kernels read; and ``row_csr()``, one CSR over
-the rows, which ``bsr_mxm``'s entry kernel reads. A handle that an
-entry-level op produced holds entries only and builds its tiles on the
-first ``.blocks`` read (``tile_builds()`` counts these builds); its tile
-list, ``nnz`` and built tiles equal the JAX build's.
+the rows, which ``bsr_mxm``'s entry kernel and the masked dot SpGEMM read.
+A handle built from an entry list (``from_coo``), or produced by an
+entry-level op or the masked dot SpGEMM (``spgemm_dot``), holds its
+entries only, as a row CSR, and builds its tiles on the first ``.blocks``
+read (``tile_builds()`` counts these builds); its tile list, ``nnz`` and
+built tiles equal the JAX build's. At Graph500 fill a 128-tile
+holds a few entries, so the tiles would be thousands of times the entries
+(199 GB against 61 MB at scale 18).
 
 The element-wise family (``ewise_add`` ... ``extract_ranges``) plans its
 output tiles on the host from the valid-tile key lists (the JAX package's
@@ -62,6 +66,7 @@ _densify_calls = [0]
 _host_numeric = [0]
 plan_tasks = 0        # SpGEMM tile tasks planned (before grid padding)
 plan_host_copies = 0  # copies through core.xfer that SpGEMM plans made
+dot_entries = 0       # mask entries the masked dot SpGEMM evaluated
 
 
 def tile_builds() -> int:
@@ -274,18 +279,51 @@ class RowCSR:
         return self._at_least[k]
 
 
+def _sorted_row_csr(rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, n: int) -> RowCSR:
+    """A RowCSR from (row, col, value) entries already in row-major order
+    (int64 coordinates)."""
+    lengths = torch.bincount(rows, minlength=n)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    indptr[1:] = torch.cumsum(lengths, dim=0)
+    order = torch.argsort(lengths, descending=True, stable=True)
+    return RowCSR(indptr=indptr, cols=cols.to(torch.int32),
+                  vals=vals.to(torch.float32), order=order.to(torch.int32))
+
+
 def _row_csr(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              shape) -> RowCSR:
     """A RowCSR from (row, col, value) entries in any order (int64)."""
     n, m = shape
     key, perm = torch.sort(rows * m + cols)
-    lengths = torch.bincount(rows, minlength=n)
-    indptr = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
-    indptr[1:] = torch.cumsum(lengths, dim=0)
-    order = torch.argsort(lengths, descending=True, stable=True)
-    return RowCSR(indptr=indptr, cols=(key % m).to(torch.int32),
-                  vals=vals[perm].to(torch.float32),
-                  order=order.to(torch.int32))
+    return _sorted_row_csr(rows[perm], key % m, vals[perm], n)
+
+
+def csr_rows(csr: RowCSR) -> torch.Tensor:
+    """(E,) int64: the row of each entry of ``csr``."""
+    n = csr.indptr.shape[0] - 1
+    return torch.repeat_interleave(torch.arange(n, device=csr.indptr.device),
+                                   csr.indptr.diff(), output_size=csr.entries)
+
+
+def nonzero_csr(csr: RowCSR, n: Optional[int] = None) -> RowCSR:
+    """``csr`` without its zero-valued entries (explicit zeros, -0.0s), as
+    a CSR of its first ``n`` rows (default: all of them), which must hold
+    every nonzero entry; the same object when that changes nothing."""
+    rows = csr.indptr.shape[0] - 1
+    n = rows if n is None else n
+    keep = csr.vals != 0
+    if n == rows and bool(keep.all()):
+        return csr
+    return _sorted_row_csr(csr_rows(csr)[keep], csr.cols[keep].long(),
+                           csr.vals[keep], n)
+
+
+def transpose_csr(csr: RowCSR, shape) -> RowCSR:
+    """The row CSR of the transpose of the (n, m) matrix ``csr`` holds:
+    its columns as rows, each row's entries in ascending column order."""
+    n, m = shape
+    return _row_csr(csr.cols.long(), csr_rows(csr), csr.vals, (m, n))
 
 
 class BSR:
@@ -293,18 +331,20 @@ class BSR:
     immutable: the forms they cache (``payload_form``, ``entry_form``,
     ``row_csr``) assume it.
 
-    A handle that an entry-level op produced holds its entries (a payload
-    EntryForm over its tile list) and builds its ``(nnzb, b, b)`` tiles
-    only when ``.blocks`` is read (``tile_builds()`` counts these builds);
-    every other handle holds tiles."""
+    A handle built from an entry list, or produced by an entry-level op
+    or the masked dot SpGEMM, holds its entries (a payload ``RowCSR``) and
+    builds its ``(nnzb, b, b)`` tiles only when ``.blocks`` is read
+    (``tile_builds()`` counts these builds); every other handle holds
+    tiles. A payload holds every element whose bits are not +0.0, -0.0
+    included."""
 
     def __init__(self, shape, block: int, blocks: Optional[torch.Tensor],
                  block_rows: torch.Tensor, block_cols: torch.Tensor,
                  first: torch.Tensor, last: torch.Tensor,
                  valid: torch.Tensor, row_ptr: torch.Tensor, nnz: int,
                  emask: Optional[torch.Tensor] = None,
-                 entries: Optional[EntryForm] = None):
-        if blocks is None and entries is None:
+                 held: Optional[RowCSR] = None):
+        if blocks is None and held is None:
             raise ValueError("BSR: needs tiles or entries")
         self.shape: Tuple[int, int] = tuple(shape)
         self.block = block
@@ -321,7 +361,8 @@ class BSR:
         # from absent; the tropical (bcast) product, to_coo and transpose
         # read it
         self.emask = emask
-        self._payload = entries
+        self._payload = None      # payload_form, built on first read
+        self._held = held         # payload row CSR of an entry-held handle
         self._form = None
         self._csr = None
         self._tiles_held = None
@@ -334,17 +375,37 @@ class BSR:
     # -- properties ----------------------------------------------------------
     @property
     def blocks(self) -> torch.Tensor:
-        """(nnzb, b, b) float32 tile payloads; an entry-produced handle
+        """(nnzb, b, b) float32 tile payloads; an entry-held handle
         scatters its entries into zeroed tiles on first read."""
         if self._blocks is None:
             _tile_builds[0] += 1
-            E = self._payload
             b = self.block
             t = torch.zeros((self.nnzb, b, b), dtype=torch.float32,
                             device=self.device)
-            t[E.tile_of(), E.rows.long(), E.cols.long()] = E.vals
+            r, c, v = self._held_entries()
+            t[self._tile_index(r, c), r % b, c % b] = v
             self._blocks = t
         return self._blocks
+
+    def _held_entries(self):
+        """(row, col, value) of the payload row CSR, row-major, int64
+        coordinates."""
+        H = self._held
+        return csr_rows(H), H.cols.long(), H.vals
+
+    def _tile_index(self, rows: torch.Tensor,
+                    cols: torch.Tensor) -> torch.Tensor:
+        """(E,) int64: the slot in the tile list of the tile holding each
+        (row, col); every entry given lies in a listed tile."""
+        b, nbc = self.block, self.nbcols
+        keys = self.block_rows.long() * nbc + self.block_cols.long()
+        return torch.searchsorted(keys, (rows // b) * nbc + cols // b)
+
+    @property
+    def holds_tiles(self) -> bool:
+        """Whether the handle's ``(nnzb, b, b)`` tiles exist (an entry-held
+        handle's are built on the first ``.blocks`` read)."""
+        return self._blocks is not None
 
     @property
     def device(self) -> torch.device:
@@ -381,7 +442,20 @@ class BSR:
         the element-wise entry kernel reads, so it sees a tile's -0.0s as
         the tile kernel does. Built once, on the device."""
         if self._payload is None:
-            self._payload = entry_form(self.blocks, signed_zeros=True)
+            if self._held is None:
+                self._payload = entry_form(self.blocks, signed_zeros=True)
+            else:
+                b = self.block
+                if b > 256:
+                    raise ValueError(f"payload_form: tile side {b} > 256 "
+                                     f"does not fit uint8 coordinates")
+                r, c, v = self._held_entries()
+                # row-major entries, stably grouped by tile: row-major
+                # inside each tile
+                tile, perm = torch.sort(self._tile_index(r, c), stable=True)
+                self._payload = form_of_entries(
+                    tile, (r[perm] % b).to(torch.uint8),
+                    (c[perm] % b).to(torch.uint8), v[perm], self.nnzb, b)
         return self._payload
 
     def entry_form(self) -> EntryForm:
@@ -396,12 +470,11 @@ class BSR:
         coordinates, tiles in storage order and row-major inside a tile."""
         b = self.block
         if self._blocks is None:
-            E = self._payload
-            keep = E.vals != 0
-            t = E.tile_of()[keep]
-            return (self.block_rows[t].long() * b + E.rows[keep].long(),
-                    self.block_cols[t].long() * b + E.cols[keep].long(),
-                    E.vals[keep])
+            r, c, v = self._held_entries()
+            keep = v != 0
+            r, c, v = r[keep], c[keep], v[keep]
+            perm = torch.sort(self._tile_index(r, c), stable=True).indices
+            return r[perm], c[perm], v[perm]
         step = max(1, _SCAN_ENTRIES // (b * b))
         rows, cols, vals = [], [], []
         for lo in range(0, self.nnzb, step):
@@ -421,7 +494,9 @@ class BSR:
         """The stored entries as one CSR over the rows (``bsr_mxm``'s entry
         kernel reads it). Built once, on the device."""
         if self._csr is None:
-            self._csr = _row_csr(*self._stored_entries(), self.shape)
+            self._csr = (nonzero_csr(self._held, self.shape[0])
+                         if self._held is not None
+                         else _row_csr(*self._stored_entries(), self.shape))
         return self._csr
 
     # -- construction --------------------------------------------------------
@@ -484,12 +559,13 @@ class BSR:
 
     @staticmethod
     def _from_meta(meta, payload, shape, block: int, nnz: int,
-                   emask=None, entries: Optional[EntryForm] = None) -> "BSR":
+                   emask=None, held: Optional[RowCSR] = None) -> "BSR":
         """A handle on ``meta``'s tile list holding ``payload`` tiles, or
-        (``payload`` None) the ``entries`` of its tiles. A tile list laid
-        out on the host is copied to the payload's device."""
+        (``payload`` None) the ``held`` payload row CSR of its tiles. A
+        tile list laid out on the host is copied to the payload's
+        device."""
         a_r, a_c, valid, first, last, row_ptr, _ = meta
-        dev = (entries.vals if payload is None else payload).device
+        dev = (payload if payload is not None else held.vals).device
 
         def on(t):
             return t if t.device == dev else xfer.to_device(t, dev, "tiles")
@@ -497,7 +573,7 @@ class BSR:
         return BSR(shape=tuple(shape), block=block, blocks=payload,
                    block_rows=on(a_r), block_cols=on(a_c), first=on(first),
                    last=on(last), valid=on(valid), row_ptr=on(row_ptr),
-                   nnz=nnz, emask=emask, entries=entries)
+                   nnz=nnz, emask=emask, held=held)
 
     @staticmethod
     def _assemble(tiles: torch.Tensor, b_r, b_c, shape, block: int, nnz: int,
@@ -531,9 +607,14 @@ class BSR:
     @staticmethod
     def from_coo(rows, cols, vals, shape, block: int = 128, pad_to: int = 8,
                  device="cuda") -> "BSR":
-        """Tiles from an entry list, scattered once into their final slots
-        on ``device``. Of repeated (row, col) entries the last one written
-        holds, as in the JAX build; ``nnz`` counts every entry given."""
+        """A handle from an entry list, on ``device``. Of repeated (row,
+        col) entries the last one written holds, as in the JAX build;
+        ``nnz`` counts every entry given. The tile list is every tile a
+        given entry falls in. The handle holds its entries as a payload row
+        CSR, sorted and de-duplicated on ``device``, and builds its tiles
+        on the first ``.blocks`` read; an entry list with an explicit 0.0
+        (which a tile cannot tell from absent) is scattered into tiles at
+        once, with the ``emask`` of its stored entries."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         if vals is None:
@@ -546,6 +627,11 @@ class BSR:
         if nbr == 0:
             return BSR._empty((n, m), block, nnz, dev)
         explicit_zero = bool(np.any(vals == 0.0))
+        if not explicit_zero:
+            return BSR._from_entry_list(
+                torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev),
+                torch.from_numpy(vals.astype(np.float32)).to(dev), (n, m),
+                block, nnz, pad_to)
         if nnz:
             key = rows * m + cols
             _, last_rev = np.unique(key[::-1], return_index=True)
@@ -571,6 +657,58 @@ class BSR:
             emask = torch.zeros(payload.shape, dtype=torch.bool, device=dev)
             emask[idx] = True
         return BSR._from_meta(meta, payload, (n, m), block, nnz, emask)
+
+    @staticmethod
+    def _from_entry_list(rows: torch.Tensor, cols: torch.Tensor,
+                         vals: torch.Tensor, shape, block: int, nnz: int,
+                         pad_to: int = 8) -> "BSR":
+        """``from_coo``'s entry-held build of nonzero values, on the
+        entries' device: a stable sort by (row, col) keeps the last of
+        repeated entries, then ``from_row_entries``."""
+        m = shape[1]
+        key, perm = torch.sort(rows * m + cols, stable=True)
+        last = torch.ones_like(key, dtype=torch.bool)
+        last[:-1] = key[1:] != key[:-1]
+        key = key[last]
+        A = BSR.from_row_entries(key // m, key % m, vals[perm[last]], shape,
+                                 block, pad_to)
+        A.nnz = nnz
+        return A
+
+    @staticmethod
+    def from_row_entries(rows: torch.Tensor, cols: torch.Tensor,
+                         vals: torch.Tensor, shape, block: int,
+                         pad_to: int = 8) -> "BSR":
+        """The entry-held handle of computed results at distinct (row, col)
+        positions of the tile grid in row-major order (int64 coordinates,
+        float32 values), as ``from_entry_slots`` keeps them: a result whose
+        value bits are +0.0 holds nothing, every other one (-0.0 too) is
+        held, and tiles left with no nonzero value are pruned, so the tile
+        list, ``nnz`` and the built tiles equal a tile route's pruned
+        output. The payload row CSR spans the grid's rows: a tile that a
+        crop cut (``extract_ranges``) can hold values past the shape."""
+        n, m = shape
+        dev = vals.device
+        nbr, nbc = -(-n // block), -(-m // block)
+        if nbr == 0:
+            return BSR._empty((n, m), block, 0, dev)
+        tk = (rows // block) * nbc + cols // block
+        nz = vals != 0
+        occupied = torch.unique(tk[nz])
+        nnz = int(nz.sum())
+        # a -0.0 is held only inside a tile that keeps a nonzero
+        held = vals.view(torch.int32) != 0
+        if occupied.numel():
+            j = torch.searchsorted(occupied, tk).clamp_(
+                max=occupied.numel() - 1)
+            held &= occupied[j] == tk
+        else:
+            held &= False
+        meta = BSR._assemble_meta(occupied // nbc, occupied % nbc, nbr, nbc,
+                                  pad_to)
+        csr = _sorted_row_csr(rows[held], cols[held], vals[held],
+                              nbr * block)
+        return BSR._from_meta(meta, None, (n, m), block, nnz, held=csr)
 
     @staticmethod
     def from_blocks_device(block_rows, block_cols, blocks, shape, block: int,
@@ -617,39 +755,27 @@ class BSR:
         """The handle of an entry-level op's output, holding entries (its
         tiles are built on first read). Output tile t, at ``block_rows[t]``
         / ``block_cols[t]`` in ascending key order, holds the results in
-        slots ``base[t]`` .. ``base[t + 1]``, row-major; a slot whose value
-        bits are +0.0 holds nothing. Every other result is kept, -0.0 too
-        (the tile kernel writes its bits), and the tiles left with no
-        nonzero value are pruned, as ``from_blocks_device`` prunes, so
-        the tile list, ``nnz`` and the built tiles equal the tile route's.
-        Only the (T,) occupancy and the nnz scalar cross to the host."""
+        slots ``base[t]`` .. ``base[t + 1]``, row-major. The results are
+        put in row-major order over the whole matrix and kept as
+        ``from_row_entries`` keeps them, so the tile list, ``nnz`` and the
+        built tiles equal the tile route's."""
         n, m = shape
         dev = vals.device
-        nbr, nbc = -(-n // block), -(-m // block)
-        if nbr == 0:
+        if n == 0:
             return BSR._empty((n, m), block, 0, dev)
-        b_r = np.asarray(block_rows, dtype=np.int32)
-        b_c = np.asarray(block_cols, dtype=np.int32)
-        T = len(b_r)
+
+        def on(a):
+            return xfer.to_device(torch.from_numpy(
+                np.asarray(a, dtype=np.int64)), dev, "tiles")
+
         slot = torch.nonzero(vals.view(torch.int32) != 0).flatten()
         tile = torch.searchsorted(base[1:], slot, right=True)
-        v = vals[slot]
-        nz = torch.bincount(tile[v != 0], minlength=T)
-        nz_h = nz.cpu().numpy()
-        occ = nz_h > 0
-        nnz = int(nz_h.sum())
-        keep = (nz > 0)[tile]
-        tile, slot, v = tile[keep], slot[keep], v[keep]
-        meta = BSR._assemble_meta(b_r[occ], b_c[occ], nbr, nbc, pad_to)
-        src = meta[-1].numpy()
-        pos = np.nonzero(src >= 0)[0]
-        # the kept tiles ascend by key, so their slots keep the entries'
-        # order: each entry only moves to its tile's slot number
-        new_of = np.full(T, -1, dtype=np.int64)
-        new_of[np.nonzero(occ)[0][src[pos]]] = pos
-        form = form_of_entries(torch.from_numpy(new_of).to(dev)[tile],
-                               rows[slot], cols[slot], v, len(src), block)
-        return BSR._from_meta(meta, None, (n, m), block, nnz, entries=form)
+        r = on(block_rows)[tile] * block + rows[slot].long()
+        c = on(block_cols)[tile] * block + cols[slot].long()
+        width = -(-m // block) * block
+        key, perm = torch.sort(r * width + c)
+        return BSR.from_row_entries(key // width, key % width,
+                                    vals[slot][perm], shape, block, pad_to)
 
     @staticmethod
     def from_dense(A, block: int = 128, device=None) -> "BSR":
@@ -678,6 +804,10 @@ class BSR:
         b = self.block
         out = torch.zeros((self.nbrows * b, self.nbcols * b),
                           dtype=torch.float32, device=self.device)
+        if self._blocks is None:
+            r, c, v = self._held_entries()
+            out[r, c] = v
+            return out[:n, :m]
         v = torch.nonzero(self.valid, as_tuple=True)[0]
         tiles = out.view(self.nbrows, b, self.nbcols, b).permute(0, 2, 1, 3)
         tiles[self.block_rows[v].long(), self.block_cols[v].long()] = \
@@ -687,7 +817,15 @@ class BSR:
     def transpose(self) -> "BSR":
         """Swap each valid tile's coordinates, transpose its payload (and
         emask) on the device, and reassemble: the JAX package's dense
-        round trip, without the dense n x n."""
+        round trip, without the dense n x n. An entry-held handle swaps its
+        payload entries' coordinates and stays entry-held."""
+        if self._blocks is None:
+            r, c, v = self._held_entries()
+            height = self.nbrows * self.block
+            key, perm = torch.sort(c * height + r)
+            return BSR.from_row_entries(
+                key // height, key % height, v[perm],
+                (self.shape[1], self.shape[0]), self.block)
         v = torch.nonzero(self.valid, as_tuple=True)[0]
         tiles = self.blocks[v].transpose(1, 2)
         em = None if self.emask is None else self.emask[v].transpose(1, 2)
@@ -908,6 +1046,44 @@ def spgemm(A: BSR, B: BSR, sr, mask: Optional[BSR] = None,
                                    complement=complement)
         return BSR.from_blocks_device(plan.c_rows, plan.c_cols, cblocks,
                                       shape, A.block)
+
+
+def spgemm_dot(A: BSR, B: BSR, sr, mask: BSR,
+               Bt: Optional[BSR] = None) -> BSR:
+    """Masked dot-product SpGEMM: C<M> = A (x) B under a structural, not
+    complemented, mask, each of the mask's stored nonzero entries (i, j)
+    computed as the dot product of A's row i and B's column j
+    (``kernels.bsr_dot``: a CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors), read from A's row CSR and the row CSR of B's
+    transpose: ``Bt``'s, a stored transpose of B where the caller has one,
+    else one transposed from B's. C holds its values on the mask's pattern
+    as entries (``BSR.from_row_entries``): no tile is built, and its tile
+    list, ``nnz`` and built tiles equal ``spgemm``'s. Span ``spgemm_dot``
+    (mask entries, work: the sum of the shorter list's length over them);
+    adds the entries to ``dot_entries``."""
+    global dot_entries
+    if A.shape[1] != B.shape[0]:
+        raise ValueError(f"spgemm_dot inner dims: {A.shape} x {B.shape}")
+    shape = (A.shape[0], B.shape[1])
+    if mask.shape != shape:
+        raise ValueError(f"spgemm_dot mask shape {mask.shape} != output "
+                         f"{shape}")
+    if sr.mode not in SPGEMM_MODES:
+        raise NotImplementedError(
+            f"spgemm_dot does not support mode {sr.mode!r} (semiring "
+            f"{sr.name})")
+    from repro_torch.kernels import bsr_dot as _k   # kernels import core
+    with tracing.span("spgemm_dot") as sp:
+        M = nonzero_csr(mask.row_csr())
+        Bc = (nonzero_csr(Bt.row_csr()) if Bt is not None
+              else transpose_csr(nonzero_csr(B.row_csr()), B.shape))
+        m_rows = csr_rows(M)
+        vals, work = _k.masked_dot(nonzero_csr(A.row_csr()), Bc, m_rows,
+                                   M.cols, sr)
+        sp.set(entries=M.entries, work=work)
+        C = BSR.from_row_entries(m_rows, M.cols.long(), vals, shape, A.block)
+    dot_entries += M.entries
+    return C
 
 
 def bsr_union(A: BSR, B: BSR) -> BSR:

@@ -511,13 +511,64 @@ def _dense_mask(mask):
     return m if isinstance(m, torch.Tensor) else m.to_dense()
 
 
+# the values the dot route's products read (dot: both operands, dot_first:
+# A); a non-finite one meets the absent zeros only the tile route multiplies
+_DOT_VALUES_READ = {"dot": (True, True), "dot_first": (True, False)}
+# the operands' stored fill under which a masked product takes the dot route
+# (dot_route_ok)
+DOT_MAX_FILL = 0.05
+
+
+def dot_route_ok(A: BSR, B: BSR, sr: S.Semiring, mask: Optional[BSR],
+                 complement: bool) -> bool:
+    """The SpGEMM route rule: the masked dot route (``core.bsr.spgemm_dot``)
+    takes a product under a structural, not complemented, mask whose
+    operands' stored fill (``core.bsr.stored_fill``) lies under
+    ``DOT_MAX_FILL`` and whose read values are finite; every other product
+    takes the tile route (``core.bsr.spgemm``). A complemented mask keeps
+    the tile route: its output is everything the mask does not hold, which
+    the tile plan enumerates.
+
+    The card's figures (NVIDIA H100 80GB HBM3, 700 W;
+    ``tools/spgemm_routes.py``, PERF.md §6): ``C<A> = A plus_pair A``
+    and its sum on the Graph Challenge's undirected Graph500 R-MAT (ids
+    permuted), 128-tiles, the median of five products, dot route against
+    tile route. Edge factor 16: scale 15 (fill 0.082%) 5.9 against 54.9
+    ms, scale 14 (0.16%) 3.5 against 18.6, scale 12 (0.58%) 2.7 against
+    5.5, scale 10 (2.0%) 2.1 against 2.6; at scale 16 (8.2 ms on the dot
+    route) the tile route runs out of the card's memory, and at scale 18
+    (39.3 ms) its (nc, 128, 128) float32 output stack alone would be
+    199 GB. Fuller tiles, from edge factors up to 1,024: the two trade
+    places between 5% and 16% (scale 10 at 5.5%: 2.65 against 2.49;
+    scale 11 at 7.7%: 3.45 against 4.43; scale 8 at 15.5%: 2.59 against
+    2.39), and at scale 11 and 16% the tile route takes half the dot
+    route's time (3.21 against 6.33). The limit sits at the low end of
+    that band, which keeps scale 8 at edge factor 16 (6.5%: 2.7 against
+    3.1, both a few launches' time) on the tile route."""
+    if mask is None or complement or sr.mode not in _SPGEMM_MODES:
+        return False
+    if _bsr.stored_fill(*{id(A): A, id(B): B}.values()) >= DOT_MAX_FILL:
+        return False
+    reads = _DOT_VALUES_READ.get(sr.mode, (False, False))
+    return all(bool(torch.isfinite(X.row_csr().vals).all())
+               for X, r in zip((A, B), reads) if r)
+
+
 def _mxm_spgemm(A: GBMatrix, B: GBMatrix, sr: S.Semiring,
                 d: Descriptor) -> GBMatrix:
-    """Sparse-times-sparse dispatch: C<M> = A (x) B with C staying BSR. The
+    """Sparse-times-sparse dispatch: C<M> = A (x) B with C staying BSR, by
+    the route rule of :func:`dot_route_ok`. The dot route reads B's columns
+    from B's stored transpose where B has one linked. The tile route's
     mask prunes whole output tiles in the symbolic phase (not
     complemented) and applies element-wise in the kernel's epilogue."""
     mask = _mask_as_bsr(d.mask, A.store.block)
-    C = _bsr.spgemm(A.store, B.store, sr, mask=mask, complement=d.complement)
+    if dot_route_ok(A.store, B.store, sr, mask, d.complement):
+        T = B._T.store if B._T is not None else None
+        C = _bsr.spgemm_dot(A.store, B.store, sr, mask,
+                            Bt=T if isinstance(T, BSR) else None)
+    else:
+        C = _bsr.spgemm(A.store, B.store, sr, mask=mask,
+                        complement=d.complement)
     name = f"({A.name}x{B.name})" if (A.name or B.name) else ""
     return GBMatrix(C, name=name)
 
@@ -1187,6 +1238,19 @@ def _reduce_bsr(s: BSR, monoid: S.Monoid, axis, dtype) -> torch.Tensor:
     if monoid.name not in ("plus", "or") or axis not in (None, 0, 1):
         # min / max need the absent entries (dense zeros) to take part
         return monoid.reduce(s.to_dense(), dim=axis).to(dtype)
+    if not s.holds_tiles:
+        # an entry-held handle sums its entries and builds no tiles
+        csr = s.row_csr()
+        v = csr.vals.to(torch.float64)
+        if monoid.name == "or":
+            v = (v != 0).to(torch.float64)
+        if axis is None:
+            return _finish(v.sum(), monoid, dtype)
+        idx = _bsr.csr_rows(csr) if axis == 1 else csr.cols.long()
+        out = torch.zeros(s.shape[0] if axis == 1 else s.shape[1],
+                          dtype=torch.float64, device=s.device)
+        out.index_add_(0, idx, v)
+        return _finish(out, monoid, dtype)
     v = s.blocks if monoid.name == "plus" else (s.blocks != 0)
     valid = s.valid.to(torch.float64)
     if axis is None:

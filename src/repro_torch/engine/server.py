@@ -159,14 +159,17 @@ class QueryServer:
             "host_transfers": 0,
             # copies between host and card and their bytes (core.xfer),
             # SpGEMM plan tasks (core.bsr.plan_tasks) and the plans' copies
-            # through core.xfer (core.bsr.plan_host_copies), deltas likewise
+            # through core.xfer (core.bsr.plan_host_copies), and the mask
+            # entries the masked dot SpGEMM evaluated (core.bsr.dot_entries),
+            # deltas likewise
             "d2h_bytes": 0, "d2h_copies": 0, "h2d_bytes": 0, "h2d_copies": 0,
-            "plan_tasks": 0, "plan_host_copies": 0,
+            "plan_tasks": 0, "plan_host_copies": 0, "dot_entries": 0,
         }
         self._xfer0 = grb.host_transfers()
         self._copies0 = xfer.copies()
         self._tasks0 = _bsr.plan_tasks
         self._plan_copies0 = _bsr.plan_host_copies
+        self._dot0 = _bsr.dot_entries
         self._refresh()                     # fail fast on a bad source
 
     # -- submission -----------------------------------------------------------
@@ -412,3 +415,4 @@ class QueryServer:
         self.stats["plan_tasks"] = _bsr.plan_tasks - self._tasks0
         self.stats["plan_host_copies"] = (_bsr.plan_host_copies
                                           - self._plan_copies0)
+        self.stats["dot_entries"] = _bsr.dot_entries - self._dot0

@@ -100,6 +100,7 @@ class GraphBuilder:
 
     def build(self, fmt: str = "auto", block: int = 128,
               device="cuda") -> Graph:
+        _check_fmt(fmt)
         dev = _device(device)
         relations = {}
         all_src, all_dst = [], []
@@ -136,7 +137,19 @@ def _dedup(src, dst, w, n):
     return src[idx], dst[idx], w[idx]
 
 
+# the storage kinds a build makes; "auto" (and None, which callers pass for
+# their default) lets core.ops.auto_format pick one
+FORMATS = ("auto", "dense", "bsr", "ell", "bitadj")
+
+
+def _check_fmt(fmt) -> None:
+    if fmt is not None and fmt not in FORMATS:
+        raise ValueError(f"unknown storage fmt {fmt!r}: a build makes "
+                         f"{', '.join(FORMATS)}")
+
+
 def _make(src, dst, w, n, fmt, block, device):
+    _check_fmt(fmt)
     if fmt == "dense":
         d = torch.zeros((n, n), dtype=torch.float32, device=device)
         d[torch.from_numpy(src).to(device), torch.from_numpy(dst).to(device)] \

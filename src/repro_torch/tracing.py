@@ -36,6 +36,8 @@ Span names and their attributes:
   hop                           hop (1-based)
   call_device, call_project     procedure, rows
   spgemm, spgemm_plan           tasks (before padding), tiles (output)
+  spgemm_dot                    entries (the mask's), work (the sum of
+                                the shorter list's length over them)
   d2h, h2d                      tag, bytes (``core.xfer``'s counted copies)
   gc                            generation
 """

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
-PyTorch version, the k-hop slice (ELL, BitELL and BSR) on a CUDA graph
+PyTorch version (the masked dot SpGEMM also against the CPU route and the
+tile route at the Graph Challenge's scales 14 and 15), the k-hop slice (ELL, BitELL and BSR) on a CUDA graph
 against the same slice on the CPU, the analytics (triangles, k-truss,
 similarity) and the remaining algorithms (BFS, k-hop, SSSP, PageRank, WCC,
 centrality, label propagation) on the card against the CPU,
@@ -39,8 +40,8 @@ from repro_torch.core.ell import ELL
 from repro_torch.engine import QueryServer
 from repro_torch.graph import datagen
 from repro_torch.graph.graph import GraphBuilder
-from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_ewise, bsr_mxm,
-                                 bsr_spgemm)
+from repro_torch.kernels import (bitadj_mxv, bitmap_mxv, bsr_dot, bsr_ewise,
+                                 bsr_mxm, bsr_spgemm)
 from repro_torch.query import execute
 
 pytestmark = pytest.mark.cuda
@@ -618,6 +619,129 @@ def test_bsr_spgemm_kernel_failure_raises(variant, monkeypatch):
             bsr_spgemm.launches_tile) == before
 
 
+# -- the masked dot SpGEMM (csrc/bsr_spgemm_dot.cu) ----------------------------
+# Weights are multiples of 0.5 in [-1, 2], so every sum the tests reach is
+# exact in float32 and the kernel, its plain version (float64 sums) and the
+# tile route agree bit for bit in every mode.
+def _challenge(scale, device, weighted=False):
+    """The Graph Challenge's undirected Graph500 R-MAT at ``scale`` (loops
+    dropped, both directions, duplicates merged, ids permuted), as a BSR
+    handle of 128-tiles on ``device`` and its transpose."""
+    src, dst, n = datagen.rmat_edges(scale, 16, seed=0)
+    keep = src != dst
+    perm = np.random.default_rng(scale).permutation(n)
+    s = perm[np.concatenate([src[keep], dst[keep]])]
+    d = perm[np.concatenate([dst[keep], src[keep]])]
+    key = np.unique(s * n + d)
+    r, c = key // n, key % n
+    v = (np.random.default_rng(scale + 1).choice(
+        [-1.0, 0.5, 1.0, 1.5, 2.0], size=len(r)) if weighted else None)
+    A = BSR.from_coo(r, c, v, (n, n), block=128, device=device)
+    return A, A.transpose()
+
+
+@pytest.mark.parametrize("scale,srname", [(14, "plus_times"),
+                                          (14, "or_and"),
+                                          (14, "plus_pair"),
+                                          (14, "plus_first"),
+                                          (15, "plus_pair")])
+def test_bsr_spgemm_dot_on_cuda_equals_the_cpu_route(scale, srname):
+    """``core.bsr.spgemm_dot`` on the card (the kernel) gives the handle the
+    CPU gives (the plain version), bit for bit: tile list, nnz and the
+    held entries; no tile is built on either side."""
+    sr = S.get(srname)
+    weighted = sr.mode in ("dot", "dot_first")
+    out = []
+    for device in ("cuda", "cpu"):
+        A, At = _challenge(scale, device, weighted)
+        b0, k0 = bsr_mod.tile_builds(), bsr_dot.launches
+        out.append(bsr_mod.spgemm_dot(A, A, sr, A, Bt=At))
+        assert bsr_mod.tile_builds() == b0
+        assert bsr_dot.launches == k0 + (device == "cuda")
+    got, want = out
+    torch.cuda.synchronize()
+    assert got.nnz == want.nnz > 0 and not got.holds_tiles
+    for f in ("block_rows", "block_cols", "first", "last", "valid",
+              "row_ptr"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    g, w = got.row_csr(), want.row_csr()
+    assert torch.equal(g.indptr.cpu(), w.indptr)
+    assert torch.equal(g.cols.cpu(), w.cols)
+    assert torch.equal(g.vals.cpu().view(torch.int32), w.vals.view(torch.int32))
+
+
+@pytest.mark.parametrize("srname", SPGEMM_SR)
+def test_bsr_spgemm_dot_equals_the_tile_route_on_cuda(srname):
+    """At scale 14 (the tile route's output stack is 1 GB) the two routes
+    on the card give the same handle, tiles built from the dot route's
+    entries included."""
+    sr = S.get(srname)
+    A, At = _challenge(14, "cuda", sr.mode in ("dot", "dot_first"))
+    got = bsr_mod.spgemm_dot(A, A, sr, A, Bt=At)
+    want = bsr_mod.spgemm(A, A, sr, mask=A)
+    torch.cuda.synchronize()
+    _same_handle(got, want)
+
+
+def test_bsr_spgemm_dot_long_lists_empty_rows_and_ties():
+    """Hub rows far longer than a unit's 128 walked elements (split over
+    units in the 0/1 modes, walked by one warp in the valued ones), rows
+    and mask entries with nothing to meet, lists of equal length, and an
+    empty mask: every mode equals the plain version on the CPU."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    r = np.concatenate([np.zeros(2500, np.int64), rng.integers(0, n, 6000),
+                        np.full(700, 7)])
+    c = np.concatenate([rng.permutation(n)[:2500], rng.integers(0, n, 6000),
+                        rng.permutation(n)[:700]])
+    key = np.unique(r * n + c)
+    r, c = key // n, key % n
+    v = rng.choice([-1.0, 0.5, 1.0, 1.5, 2.0], size=len(r))
+    mr = np.concatenate([np.zeros(300, np.int64), np.full(300, 7),
+                         rng.integers(0, n, 3000)])
+    mc = rng.integers(0, n, len(mr))
+    for srname in SPGEMM_SR:
+        sr = S.get(srname)
+        out = []
+        for device in ("cuda", "cpu"):
+            A = BSR.from_coo(r, c, v, (n, n), block=128, device=device)
+            M = BSR.from_coo(mr, mc, None, (n, n), block=128, device=device)
+            E = BSR.from_coo(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                             None, (n, n), block=128, device=device)
+            out.append((bsr_mod.spgemm_dot(A, A.transpose(), sr, M),
+                        bsr_mod.spgemm_dot(A, A, sr, E)))
+        (got, got_e), (want, want_e) = out
+        assert got_e.nnz == want_e.nnz == 0
+        assert got.nnz == want.nnz > 0
+        g, w = got.row_csr(), want.row_csr()
+        assert torch.equal(g.cols.cpu(), w.cols), srname
+        assert torch.equal(g.vals.cpu(), w.vals), srname
+
+
+def test_triangle_call_at_scale_15_equals_scipy_and_builds_no_tile():
+    """``CALL algo.triangles`` through the server on the Graph Challenge's
+    scale-15 graph on the card (entry-held BSR) gives scipy's count and
+    builds no tile."""
+    import scipy.sparse as sp
+    src, dst, n = datagen.rmat_edges(15, 16, seed=0)
+    keep = src != dst
+    s = np.concatenate([src[keep], dst[keep]])
+    d = np.concatenate([dst[keep], src[keep]])
+    g = GraphBuilder(n).add_edges("KNOWS", s, d).build(fmt="bsr",
+                                                       device="cuda")
+    b0 = bsr_mod.tile_builds()
+    srv = QueryServer(g)
+    qid = srv.submit("CALL algo.triangles(rel: KNOWS)")
+    res = srv.flush()[qid]
+    assert res.error is None
+    A = sp.csr_matrix((np.ones(len(s)), (s, d)), shape=(n, n))
+    A.data[:] = 1.0
+    want = int((A @ A).multiply(A).sum()) // 6
+    assert int(res.scalar()) == want
+    assert bsr_mod.tile_builds() == b0
+    assert srv.stats["dot_entries"] == A.nnz
+
+
 BSR_SLICE = [
     "MATCH (a)-[:KNOWS*1..2]->(b) WHERE id(a) IN [1, 7, 33] "
     "RETURN a, count(DISTINCT b)",
@@ -1105,11 +1229,12 @@ def _analytics_graph(scale, device):
 
 
 def test_analytics_on_cuda_launch_and_match_cpu():
-    """Triangles, k-truss and similarity on a CUDA BSR graph launch
-    bsr_spgemm and bsr_ewise and give the CPU's answers."""
+    """Triangles, k-truss and similarity on a CUDA BSR graph launch the
+    masked dot SpGEMM (the graph's 128-tiles are under
+    ``grb.DOT_MAX_FILL``) and bsr_ewise and give the CPU's answers."""
     from repro_torch import algorithms as algo
     gc, gh = _analytics_graph(10, "cuda"), _analytics_graph(10, "cpu")
-    e0, s0, m0 = bsr_ewise.launches, bsr_spgemm.launches, bsr_mxm.launches
+    e0, s0, m0 = bsr_ewise.launches, bsr_dot.launches, bsr_mxm.launches
     assert int(algo.triangle_count(gc, "KNOWS")) == \
         int(algo.triangle_count(gh, "KNOWS"))
     tc, th = algo.ktruss(gc, 4, rel="KNOWS"), algo.ktruss(gh, 4, rel="KNOWS")
@@ -1122,7 +1247,7 @@ def test_analytics_on_cuda_launch_and_match_cpu():
     src = np.arange(0, 1024, 17)
     assert torch.equal(algo.similarity(gc, src, rel="KNOWS").cpu(),
                        algo.similarity(gh, src, rel="KNOWS"))
-    assert bsr_ewise.launches > e0 and bsr_spgemm.launches > s0
+    assert bsr_ewise.launches > e0 and bsr_dot.launches > s0
     assert bsr_mxm.launches > m0
 
 

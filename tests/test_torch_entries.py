@@ -8,7 +8,8 @@ references (``bsr_mxm_jnp``, the XLA gather of ``map_tiles``) and, once
 per kernel, its Pallas kernel in interpret mode, as its own suites do.
 On the CPU the fill dispatch picks between the two plain versions, so
 these tests run the forms, the glue and the lazily built tiles the card
-runs. Tolerances: forms, tile lists, tiles and every ``bsr_ewise`` mode
+runs; a handle built from an entry list holds its entries, and its forms,
+views and transpose equal the tile build's with no tile built. Tolerances: forms, tile lists, tiles and every ``bsr_ewise`` mode
 bit for bit (NaN, +-inf and -0.0 included); ``bsr_mxm``'s 0/1 modes and
 bcast bit for bit against the JAX package, and every mode bit for bit
 between the two plain versions (weights and frontier values are small
@@ -290,6 +291,72 @@ def test_ewise_entry_keeps_negative_zero_results():
 
 
 # -- lazy tiles -------------------------------------------------------------------
+@pytest.mark.parametrize("mode,opname", [("union", "plus"),
+                                         ("apply", "ainv"),
+                                         ("select", "ne(1)"),
+                                         ("mask_c", None)])
+def test_entry_op_keeps_a_crops_values_past_the_shape(mode, opname,
+                                                      monkeypatch):
+    """A crop (``extract_ranges``) to a shape that cuts its last tiles
+    leaves values past the shape in them (NaN from inf and NaN times the
+    crop's 0): an entry op's output holds them as the tile route's tiles
+    do, its row CSR spanning the tile grid, and equals the tile route's
+    handle bit for bit, transposed too."""
+    rng = np.random.default_rng(len(mode))
+    n, m = 40, 35
+    tA, tB = (tbsr.extract_ranges(TBSR.from_coo(
+        rng.integers(0, n, 6 * n), rng.integers(0, m, 6 * n),
+        rng.choice([-2.0, -1.0, 0.5, 1.0, 2.0, np.nan, np.inf, -np.inf],
+                   6 * n), (n, m), block=16, device="cpu"), 0, n - 1, 0,
+        m - 2) for _ in range(2))
+    r, c, v = tA.to_coo()
+    assert np.isnan(v[(r >= n - 1) | (c >= m - 2)]).any()
+    op = OPS[opname][1] if opname else None
+    monkeypatch.setattr(tkew, "entry_max_fill", lambda b_: 1.01)
+    got = _ewise(mode, tbsr, tA, tB, op)
+    assert tkew.picked == "entry" and not got.holds_tiles
+    gT = got.transpose()
+    monkeypatch.setattr(tkew, "entry_max_fill", lambda b_: 0.0)
+    want = _ewise(mode, tbsr, tA, tB, op)
+    assert tkew.picked == "tile" and got.nnz == want.nnz
+    for f in ARRAYS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(got.blocks.view(torch.int32),
+                       want.blocks.view(torch.int32))
+    assert torch.equal(got.to_dense().view(torch.int32),
+                       want.to_dense().view(torch.int32))
+    wT = want.transpose()
+    assert not gT.holds_tiles and gT.nnz == wT.nnz
+    assert torch.equal(gT.blocks.view(torch.int32),
+                       wT.blocks.view(torch.int32))
+
+
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("scale,block", SCALES)
+def test_entry_op_output_forms_equal_its_built_tiles(scale, block, special):
+    """An entry-level op's output holds its entries as one payload row CSR,
+    as ``from_coo`` and the dot route do: the payload form, entry form and
+    row CSR built from them equal those built from its tiles once read,
+    bit for bit (-0.0 included), and its handle equals the JAX one."""
+    jA, tA = rmat(scale, block, special=special)
+    got = tbsr.apply_stored(tA, TS.ewise("mul", 1e-30))
+    want = jbsr.apply_stored(jA, lambda a: a * 1e-30)
+    assert not got.holds_tiles
+    forms = (got.payload_form(), got.entry_form(), got.row_csr())
+    v = got.valid != 0
+    tiles = tbsr.BSR.from_blocks_device(
+        got.block_rows[v], got.block_cols[v], got.blocks[v].clone(),
+        got.shape, block, prune=False)
+    for a, b in zip(forms, (tiles.payload_form(), tiles.entry_form(),
+                            tiles.row_csr())):
+        for f in ("base", "row_ptr", "rows", "cols", "bands", "indptr",
+                  "order"):
+            if hasattr(a, f):
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(a.vals.view(torch.int32), b.vals.view(torch.int32))
+    assert_same_handle(want, got)
+
+
 @pytest.mark.parametrize("scale,block", SCALES)
 def test_select_output_builds_no_tiles_until_read(scale, block):
     """``select_stored`` -> ``nvals`` / ``to_coo`` / the forms build no
@@ -317,9 +384,10 @@ def test_select_output_builds_no_tiles_until_read(scale, block):
 
 
 def test_ktruss_round_reads_its_operands_as_entries():
-    """k-truss feeds each select's entry output to the next SpGEMM: its
-    operands are read as entry forms and its mask as tiles, one tile build
-    a round, and the truss equals the JAX package's."""
+    """k-truss feeds each select's entry output to the next SpGEMM, which
+    takes the masked dot route (the graph's 32-tiles are under
+    ``grb.DOT_MAX_FILL``): its operands and its mask are read as entries,
+    no round builds a tile, and the truss equals the JAX package's."""
     from repro import algorithms as JA
     from repro_torch import algorithms as TA
     src, dst, n = jdatagen.rmat_edges(9, 16, seed=2)
@@ -333,9 +401,89 @@ def test_ktruss_round_reads_its_operands_as_entries():
     T = TA.ktruss(tgrb.GBMatrix(tA), 4)
     rounds = tbsr.tile_builds() - t0
     want = JA.ktruss(jgrb.GBMatrix(jA), 4)
-    assert 1 <= rounds
+    assert rounds == 0
     for got_a, want_a in zip(T.store.to_coo(), want.store.to_coo()):
         assert np.array_equal(got_a, want_a)
+
+
+# -- the entry-held build -------------------------------------------------------
+def _tile_held(jA):
+    """The port handle holding the JAX build's tiles: the tile build that
+    ``from_coo`` made before it held entries (bit for bit the JAX one)."""
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    return TBSR(shape=jA.shape, block=jA.block, blocks=t(jA.blocks),
+                block_rows=t(jA.block_rows), block_cols=t(jA.block_cols),
+                first=t(jA.first), last=t(jA.last), valid=t(jA.valid),
+                row_ptr=t(jA.row_ptr), nnz=jA.nnz)
+
+
+def _held_case(case):
+    """(rows, cols, values, n, block) of an edge case of the build."""
+    rng = np.random.default_rng(len(case))
+    if case == "empty":
+        z = np.zeros(0, np.int64)
+        return z, z, None, 300, 128
+    if case == "single_row":
+        c = rng.permutation(300)[:40]
+        return np.full(40, 5), c, rng.uniform(0.5, 2.0, 40), 300, 32
+    # hub_row: row 0 reaches every column, the rest is sparse, repeats kept
+    r = np.concatenate([np.zeros(1000, np.int64), rng.integers(0, 1000, 900)])
+    c = np.concatenate([rng.permutation(1000), rng.integers(0, 1000, 900)])
+    return r, c, rng.choice([-1.0, 0.5, 2.0], len(r)), 1000, 128
+
+
+def _same_csr(got, want):
+    for f in ("indptr", "cols", "order"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert np.array_equal(bits(got.vals.numpy()), bits(want.vals.numpy()))
+
+
+def _same_form(got, want):
+    assert got.entries == want.entries
+    for f in ("base", "row_ptr", "rows", "cols", "bands"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert np.array_equal(bits(got.vals.numpy()), bits(want.vals.numpy()))
+
+
+@pytest.mark.parametrize("case", [(8, 16, False), (10, 32, True),
+                                  (12, 128, False), "empty", "single_row",
+                                  "hub_row"])
+def test_entry_held_build_equals_the_tile_build(case):
+    """``from_coo`` holds its entries (no explicit 0.0 given): its row CSR,
+    entry and payload forms, COO, fill and transpose come from the entries
+    with no tile built, and equal the tile build's bit for bit (NaN, +-inf
+    and 1e-30 included); ``.blocks`` then builds the tiles once, equal to
+    the JAX build's."""
+    if isinstance(case, tuple):
+        scale, block, special = case
+        jA, tA = rmat(scale, block, special=special)
+    else:
+        r, c, v, n, block = _held_case(case)
+        jA = JBSR.from_coo(r, c, v, (n, n), block=block)
+        tA = TBSR.from_coo(r, c, v, (n, n), block=block, device="cpu")
+    want = _tile_held(jA)
+    t0 = tbsr.tile_builds()
+    assert not tA.holds_tiles and want.holds_tiles
+    assert tA.nnz == want.nnz and tA.fill_ratio == want.fill_ratio
+    for f in ARRAYS:
+        assert torch.equal(getattr(tA, f), getattr(want, f)), f
+    _same_csr(tA.row_csr(), want.row_csr())
+    _same_form(tA.payload_form(), want.payload_form())
+    _same_form(tA.entry_form(), want.entry_form())
+    for got_a, want_a in zip(tA.to_coo(), want.to_coo()):
+        assert np.array_equal(bits(got_a) if got_a.dtype == np.float32
+                              else got_a, bits(want_a)
+                              if want_a.dtype == np.float32 else want_a)
+    T, wT = tA.transpose(), want.transpose()
+    assert not T.holds_tiles and T.nnz == wT.nnz
+    for f in ARRAYS:
+        assert torch.equal(getattr(T, f), getattr(wT, f)), f
+    _same_csr(T.row_csr(), wT.row_csr())
+    assert tbsr.tile_builds() == t0
+    assert_same_handle(jA, tA)
+    assert np.array_equal(bits(T.blocks.numpy()), bits(wT.blocks.numpy()))
+    assert tbsr.tile_builds() == t0 + 2
 
 
 # -- the fill dispatch --------------------------------------------------------------

@@ -5,7 +5,9 @@ Off, a span is one shared no-op and nothing is recorded; on, a CPU
 traverse > expand > hop and pump > finish > d2h / project, every span of a
 sweep under its batch id, and ``launch`` naming the sweep's queries; a
 ``CALL algo.triangles`` records its SpGEMM plan's tasks, which
-``QueryServer.stats["plan_tasks"]`` counts too; a collection is a ``gc``
+``QueryServer.stats["plan_tasks"]`` counts too, or, on the masked dot
+route, one ``spgemm_dot`` span with the mask's entries, which
+``stats["dot_entries"]`` counts; a collection is a ``gc``
 span under the span it struck in; under the torch profiler the spans are
 ``repro.*`` ranges around the ops they launch. On a CPU graph no copy
 crosses to a card, so the copy counters stay 0. The card test
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch import tracing
-from repro_torch.core import bsr as tbsr, xfer
+from repro_torch.core import bsr as tbsr, grb as tgrb, xfer
 from repro_torch.engine import QueryServer
 from repro_torch.graph import datagen
 from repro_torch.graph.graph import GraphBuilder
@@ -189,6 +191,30 @@ def test_triangles_call_counts_its_plan_tasks(traced):
     reads = [r for r in recs if r.name == "d2h" and r.attrs["tag"] == "plan"
              and r.rid == plan.rid]
     assert len(reads) == 2 and all(r.parent == served for r in reads)
+
+
+def test_a_dot_route_call_records_its_span_and_entries(traced, monkeypatch):
+    """A triangle call on the masked dot route records one ``spgemm_dot``
+    span under ``call_device``, tagged with the mask's entries and the
+    work (the sum over them of the shorter list's length), runs no SpGEMM
+    plan, and moves ``stats["dot_entries"]`` by the mask's entries."""
+    monkeypatch.setattr(tgrb, "DOT_MAX_FILL", 1.01)
+    g = _graph(fmt="bsr", undirected=True)
+    srv = QueryServer(g)
+    qid = srv.submit("CALL algo.triangles(rel: KNOWS)")
+    assert srv.flush()[qid].error is None
+    recs = traced.records()
+    (dot,) = [r for r in recs if r.name == "spgemm_dot"]
+    assert not [r for r in recs if r.name in ("spgemm", "spgemm_plan")]
+    assert _chain(recs, recs.index(dot)) == [
+        "pump", "launch", "traverse", "call_device", "spgemm_dot"]
+    csr = g.relation("KNOWS").A.store.row_csr()
+    deg = csr.indptr.diff()
+    work = int(torch.minimum(deg[tbsr.csr_rows(csr)],
+                             deg[csr.cols.long()]).sum())
+    assert dot.attrs == {"entries": csr.entries, "work": work}
+    assert srv.stats["dot_entries"] == csr.entries
+    assert srv.stats["plan_tasks"] == 0
 
 
 def test_a_collection_is_a_gc_span_under_the_span_it_struck(traced):
